@@ -1,0 +1,52 @@
+"""cpu_path_tracing_tpu_torch — the path tracer on PyTorch and CUDA.
+
+The port of ``cpu_path_tracing_tpu`` (JAX, Pallas on a TPU) to PyTorch with
+hand-written CUDA kernels for an NVIDIA H100.  Module names mirror the JAX
+package's.  The forward render is ported: ``render_image`` renders where
+the scene lives, with the CUDA kernel (``ops/kernels/megakernel.py``,
+``csrc/``) on the card and its plain PyTorch version on the CPU.  This
+package never imports JAX or the JAX package.
+"""
+
+from .config import RenderConfig
+from .models.camera import Camera, CameraConfig, build_camera, get_rays
+from .models.scene import (
+    DIELECTRIC,
+    DIFFUSE,
+    SPECULAR,
+    Scene,
+    get_scene,
+    register_scene,
+    scene_from_arrays,
+    scene_from_spheres,
+    scene_names,
+)
+from .models import scenes as _builtin_scenes  # noqa: F401  (registers the scenes)
+from .render import finalize_image, render_cells, render_image
+from .utils.image import color_to_int, tonemap, write_png, write_ppm
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RenderConfig",
+    "Camera",
+    "CameraConfig",
+    "build_camera",
+    "get_rays",
+    "DIFFUSE",
+    "SPECULAR",
+    "DIELECTRIC",
+    "Scene",
+    "get_scene",
+    "register_scene",
+    "scene_from_arrays",
+    "scene_from_spheres",
+    "scene_names",
+    "render_image",
+    "render_cells",
+    "finalize_image",
+    "color_to_int",
+    "tonemap",
+    "write_png",
+    "write_ppm",
+]

@@ -1,0 +1,91 @@
+"""Build and load the package's CUDA kernels.
+
+The sources in ``csrc/`` are compiled at first use by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  The library lands in ``_build/`` beside this file,
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads at once.  The build uses IEEE division, square root
+and trigonometry (no ``--use_fast_math``), as ``csrc/step_math.cuh``
+requires.  ``nvcc -Xptxas -v`` output (registers, spills) is kept in a
+``.log`` beside the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# -fmad=false: no contraction of a*b+c into fma, so the kernel rounds as the
+# plain PyTorch version does, term for term (PERF.md: the fmad choice).
+FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str | None:
+    """nvcc on PATH, else under CUDA_HOME, else the toolkit's usual place."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    return None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path(flags: tuple[str, ...] = FLAGS) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + tuple(flags)).encode())
+    return BUILD_DIR / f"libpt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(flags: tuple[str, ...] = FLAGS) -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources and flags
+    exists.  Returns its path.  Raises RuntimeError naming the command when
+    nvcc is missing or fails.  Other ``flags`` than the default are for
+    measurement (``scripts/torch_chip_measure.py`` builds with fma)."""
+    lib = library_path(flags)
+    if lib.exists():
+        return lib
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["nvcc", *ARCH_FLAGS, *flags, "-o", str(tmp), *map(str, _sources())]
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(f"nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda); "
+                           f"cannot run: {' '.join(cmd)}")
+    cmd[0] = nvcc
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def load(flags: tuple[str, ...] = FLAGS) -> ctypes.CDLL:
+    """Build if needed, load once, and declare the C entry points."""
+    lib = ctypes.CDLL(str(build(flags)))
+    vp = ctypes.c_void_p
+    lib.pt_persistent_render.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), vp]
+    lib.pt_persistent_render.restype = ctypes.c_int
+    lib.pt_error_string.argtypes = [ctypes.c_int]
+    lib.pt_error_string.restype = ctypes.c_char_p
+    return lib

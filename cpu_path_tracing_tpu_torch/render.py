@@ -1,0 +1,144 @@
+"""Rendering pipeline: cells, samples, launches, image.
+
+Counterpart of ``cpu_path_tracing_tpu/render.py``.  The image is a flat
+array of subpixel cells, ``cell = (y*W + x) * ns^2 + sy*ns + sx`` with y=0
+the bottom row (the reference's vertical flip, ``src/main.cpp:181``,
+happens in ``finalize_image``).  Every launch renders a contiguous cell span
+for a range of samples (``ops/wavefront.py``); the image is a pure function
+of (scene, config, seed), independent of chunking.
+
+The renderer works where the scene lives: ``scene.to("cuda")`` renders
+with the CUDA kernel, a scene on the CPU with the plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import RenderConfig
+from .models.camera import build_camera, get_rays
+from .ops.kernels.megakernel import check_kernel_config
+from .ops.wavefront import render_wavefront_persistent
+
+
+def decode_cells(cell_ids, cfg: RenderConfig):
+    """cell id -> (x, y, sx, sy) integer tensors."""
+    ns = cfg.num_subpixels
+    sub = cell_ids % (ns * ns)
+    pix = cell_ids // (ns * ns)
+    return pix % cfg.width, pix // cfg.width, sub % ns, sub // ns
+
+
+def screen_coords(cfg: RenderConfig, cell_ids, u4, dtype):
+    """Jittered screen coordinates (s, t) in [0,1) of cells from a [B,4]
+    camera-uniform block (``src/main.cpp:186-190``; or smallpt's tent
+    filter, ``sandbox/main.cpp:253-256``, with ``cfg.jitter='tent'``)."""
+    ns = cfg.num_subpixels
+    x, y, sx, sy = decode_cells(cell_ids, cfg)
+    sub_len = 1.0 / ns
+    if cfg.jitter == "tent":
+        def tent(u):
+            r = 2.0 * u
+            return torch.where(r < 1.0, torch.sqrt(r) - 1.0, 1.0 - torch.sqrt(2.0 - r))
+
+        jx, jy = 0.5 + tent(u4[:, 0]), 0.5 + tent(u4[:, 1])
+    elif cfg.jitter == "uniform":
+        jx, jy = u4[:, 0], u4[:, 1]
+    else:
+        raise ValueError(f"unknown jitter {cfg.jitter!r}")
+    x_in = x.to(dtype) + sx.to(dtype) * sub_len + jx * sub_len
+    y_in = y.to(dtype) + sy.to(dtype) * sub_len + jy * sub_len
+    # Multiply by the reciprocal constant, as the kernel does.
+    return x_in * (1.0 / cfg.width), y_in * (1.0 / cfg.height)
+
+
+def camera_rays_for_cells(scene, cfg: RenderConfig, cell_ids, u4, dtype):
+    """Thin-lens rays (origins [B,3], directions [B,3]) for cells from a
+    [B,4] camera-uniform block."""
+    s, t = screen_coords(cfg, cell_ids, u4, dtype)
+    return get_rays(build_camera(scene.camera), s, t, u4[:, 2], u4[:, 3])
+
+
+def check_contiguous_cells(cell_ids) -> None:
+    """Launches regenerate cells as ``cell_ids[0] + offset``; reject any
+    other id set instead of rendering the wrong cells."""
+    if cell_ids.numel() > 1 and not bool(torch.all(torch.diff(cell_ids) == 1)):
+        raise ValueError("render launches need a contiguous ascending cell_ids span "
+                         "(got a non-contiguous id set)")
+
+
+def _on_cuda(scene) -> bool:
+    return scene.device.type == "cuda"
+
+
+def resolve_integrator(scene, cfg: RenderConfig) -> str:
+    """'cuda' (the kernel) for a float32, uniform-jitter scene on a CUDA
+    device; 'plain' (the PyTorch version) for a scene on the CPU.  Raises
+    for what is not ported, before anything is launched: a CUDA scene in
+    float64 or with tent jitter (the kernel module's ``check_kernel_config``
+    owns that rule), another integrator or loop.  The route itself follows
+    the device of the tensors, which the kernel wrapper reads."""
+    if cfg.integrator != "auto":
+        raise ValueError(f"integrator={cfg.integrator!r}: only 'auto' is ported")
+    if cfg.loop != "while":
+        raise ValueError(f"loop={cfg.loop!r}: only 'while' is ported (ROADMAP.md "
+                         "Queue 1 item 7 brings the scan loop)")
+    if not _on_cuda(scene):
+        return "plain"
+    check_kernel_config(cfg, scene.dtype)
+    return "cuda"
+
+
+def render_cells_range(scene, cfg: RenderConfig, cell_ids, sample_start: int,
+                       num_samples: int, *, with_stats: bool = False):
+    """SUM of radiance over samples [sample_start, sample_start+num_samples)
+    for a contiguous cell span: [B,3], unclamped, unnormalized (plus the
+    launch's stats with ``with_stats``).  Any partition of the sample range
+    sums to the same total up to float association."""
+    resolve_integrator(scene, cfg)  # validate; the wrapper dispatches on the device
+    return render_wavefront_persistent(scene, cfg, cell_ids, sample_start, num_samples,
+                                       with_stats=with_stats)
+
+
+def render_cells(scene, cfg: RenderConfig, cell_ids) -> torch.Tensor:
+    """Mean radiance over cfg.spp samples for each cell.  [B,3], unclamped."""
+    return render_cells_range(scene, cfg, cell_ids, 0, cfg.spp) / cfg.spp
+
+
+def sample_chunk_for(spp: int, num_cells: int, items_cap: int = 64 << 20) -> int:
+    """Largest divisor of spp keeping num_cells*chunk items per launch under
+    the cap (the item output is 12 bytes per item in float32)."""
+    cap = max(1, items_cap // max(1, num_cells))
+    return max(c for c in range(1, min(spp, cap) + 1) if spp % c == 0)
+
+
+def finalize_image(cell_means: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """Cell means [num_cells,3] -> linear image [H,W,3], top row first.
+    Each subpixel is clamped to [0,1] before the subpixels are averaged
+    (the reference's bias, ``src/main.cpp:195-196``)."""
+    ns2 = cfg.num_subpixels * cfg.num_subpixels
+    c = torch.clamp(cell_means, 0.0, 1.0)
+    pixels = c.reshape(cfg.height, cfg.width, ns2, 3).mean(dim=2)
+    return torch.flip(pixels, dims=(0,))  # y=0 is the bottom row
+
+
+def render_image(scene, cfg: RenderConfig) -> torch.Tensor:
+    """Render the full image on the scene's device: linear radiance
+    [H,W,3].  Cells are chunked by ``cfg.ray_chunk`` (whole pixels per
+    chunk); samples are chunked only above ``sample_chunk_for``'s item cap."""
+    n = cfg.num_cells
+    ns2 = cfg.num_subpixels * cfg.num_subpixels
+    chunk = cfg.ray_chunk or n
+    chunk = max(ns2, chunk - chunk % ns2)
+    outs = []
+    for start in range(0, n, chunk):
+        ids = torch.arange(start, min(start + chunk, n), dtype=torch.int64, device=scene.device)
+        schunk = sample_chunk_for(cfg.spp, ids.shape[0])
+        if schunk == cfg.spp:
+            outs.append(render_cells(scene, cfg, ids))
+            continue
+        acc = render_cells_range(scene, cfg, ids, 0, schunk)
+        for s0 in range(schunk, cfg.spp, schunk):
+            acc = acc + render_cells_range(scene, cfg, ids, s0, schunk)
+        outs.append(acc / cfg.spp)
+    return finalize_image(torch.cat(outs, dim=0), cfg)

@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Measurements of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 scripts/torch_chip_measure.py [--part fmad|profile|scenes|all]
+
+Prints one JSON line per measurement, with the card's nvidia-smi line
+(name, power limit, SM clock, power drawn) before and after.  The parts:
+
+- fmad: builds the kernel with and without ``-fmad=false`` and reports,
+  for each, the per-item parity against the plain version at 64x48, 2 spp,
+  max_depth 8 and 100 (six scenes), then the kernel's CUDA-event time on
+  disco (box_mirror) 1024x768, 32 total spp, max_depth 100, in the order
+  nofma, fma, nofma, fma (1 warm-up, 3 runs each).
+- profile: ``torch.profiler`` over 3 ``render_cells_range`` calls of that
+  main path: the window's event time, the device time by kernel and the
+  share of the window the device was busy.
+- scenes: the kernel's Mrays/s, segments per item and occupancy for every
+  scene at the main path's size (1 warm-up, median of 3).
+
+Imports nothing of JAX.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import cpu_path_tracing_tpu_torch as tp  # noqa: E402
+from cpu_path_tracing_tpu_torch import _build, render  # noqa: E402
+from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk  # noqa: E402
+
+MAIN = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
+VARIANTS = {"nofma": _build.FLAGS, "fma": tuple(f for f in _build.FLAGS if f != "-fmad=false")}
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+@contextlib.contextmanager
+def kernel_variant(flags):
+    """Make the wrapper launch the library built with ``flags``."""
+    lib = _build.load(flags)
+    real = _build.load
+    _build.load = lambda: lib
+    try:
+        yield
+    finally:
+        _build.load = real
+
+
+def event_times(fn, runs: int = 3):
+    """CUDA-event ms of ``runs`` calls after one warm-up; returns (times, last result)."""
+    fn()
+    times, out = [], None
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return times, out
+
+
+def packed(name, cfg, dev):
+    scene = tp.get_scene(name, cfg.width, cfg.height)
+    kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=cfg.spp * cfg.num_cells, ior=scene.ior)
+    return mk.pack_scene(scene).to(dev), mk.pack_camera(scene).to(dev), kw
+
+
+def part_fmad(dev):
+    for name, flags in VARIANTS.items():
+        log = _build.build(flags).with_suffix(".log").read_text()
+        emit({"variant": name, "ptxas": [ln.strip() for ln in log.splitlines()
+                                         if "registers" in ln or "spill" in ln]})
+    for scene in ("box_mirror", "simple", "box", "smallpt", "random_spheres_512",
+                  "depth_of_field"):
+        for depth in (8, 100):
+            cfg = tp.RenderConfig(width=64, height=48, spp=2, max_depth=depth)
+            table, cam, kw = packed(scene, cfg, dev)
+            ref = mk.persistent_render_reference(table, cam, (0, 0), **kw)[0].cpu().numpy()
+            rec = {"scene": scene, "depth": depth}
+            for name, flags in VARIANTS.items():
+                with kernel_variant(flags):
+                    got = mk.persistent_render(table, cam, (0, 0), **kw)[0].cpu().numpy()
+                d = (np.abs(got - ref) / np.maximum(np.maximum(np.abs(got), np.abs(ref)), 1.0))
+                d = d.max(axis=0)
+                rec[name] = {"exact_frac": float(np.mean(got == ref)),
+                             "p999": float(np.quantile(d, 0.999)),
+                             "frac_above_1e-3": float(np.mean(d > 1e-3))}
+            emit(rec)
+    table, cam, kw = packed("box_mirror", MAIN, dev)
+    for name in ("nofma", "fma", "nofma", "fma"):
+        with kernel_variant(VARIANTS[name]):
+            times, (_, st) = event_times(lambda: mk.persistent_render(table, cam, (0, 0), **kw))
+        emit({"variant": name, "main_path_kernel_ms": times, "segments": int(st["segments"])})
+
+
+def part_profile(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = tp.get_scene("box_mirror", MAIN.width, MAIN.height).to(dev)
+    ids = torch.arange(MAIN.num_cells, device=dev)
+
+    def call():
+        return render.render_cells_range(scene, MAIN, ids, 0, MAIN.spp, with_stats=True)
+
+    call()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for _ in range(3):
+            call()
+        e1.record()
+        torch.cuda.synchronize()
+    window_ms = e0.elapsed_time(e1)
+    rows = []
+    for k in prof.key_averages():
+        d = getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
+        if d > 0:
+            rows.append((d / 1e3, k.count, k.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    emit({"window_ms_3_calls": window_ms, "device_ms": device_ms,
+          "busy_share": device_ms / window_ms,
+          "top": [{"ms": ms, "count": n, "name": key[:80]} for ms, n, key in rows[:12]]})
+
+
+def part_scenes(dev):
+    for name in tp.scene_names():
+        if name == "disco_sphere":  # the alias of box_mirror
+            continue
+        table, cam, kw = packed(name, MAIN, dev)
+        times, (_, st) = event_times(lambda: mk.persistent_render(table, cam, (0, 0), **kw))
+        ms = sorted(times)[len(times) // 2]
+        seg, iters, lanes = int(st["segments"]), int(st["iters"]), st["lanes"]
+        emit({"scene": name, "spheres": int(table.shape[0]), "ms": ms, "runs_ms": times,
+              "segments": seg, "segments_per_item": seg / kw["n_items"],
+              "mrays_per_s": seg / ms / 1e3, "iters": iters, "lanes": lanes,
+              "occupancy": seg / (iters * lanes)})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--part", choices=("fmad", "profile", "scenes", "all"), default="all")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    print("smi", smi(), flush=True)
+    for part, run in (("fmad", part_fmad), ("profile", part_profile), ("scenes", part_scenes)):
+        if args.part in (part, "all"):
+            run(dev)
+    print("smi", smi(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+"""The CUDA kernel on the card (skipped where there is none).
+
+Run on a machine with an NVIDIA GPU:
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+This file imports no JAX, so it runs where JAX is not installed;
+``--noconftest`` skips tests/conftest.py, which imports it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import cpu_path_tracing_tpu_torch as tp
+from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", ["box_mirror", "simple", "smallpt_exact"])
+def test_kernel_matches_plain_version(cuda, name):
+    """Tier 1 of the parity gate at max_depth 8: scale-aware deviation
+    p99.9 < 1e-5 and < 0.1% of items above 1e-3."""
+    cfg = tp.RenderConfig(width=32, height=24, spp=2, max_depth=8)
+    scene = tp.get_scene(name, 32, 24)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), (0, 0))
+    kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=2 * cfg.num_cells, ior=scene.ior)
+    got, st = mk.persistent_render(*args, **kw)
+    ref, ref_st = mk.persistent_render_reference(*args, **kw)
+    torch.cuda.synchronize()
+    a, b = got.cpu().numpy(), ref.cpu().numpy()
+    dev = (np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)).max(axis=0)
+    assert np.quantile(dev, 0.999) < 1e-5 and np.mean(dev > 1e-3) < 1e-3
+    assert int(st["segments"]) > 0 and st["lanes"] > 0 and int(st["iters"]) > 0
+
+
+def test_regenerating_launch_matches_plain_version(cuda):
+    """More items than threads, so each thread starts further items, at a
+    nonzero cell_start and sample_start, over a span that runs past the last
+    cell (clamped to it): tier 1 as above."""
+    cfg = tp.RenderConfig(width=256, height=192, spp=8, max_depth=8)
+    scene = tp.get_scene("box_mirror", 256, 192)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), (150_001, 5))
+    kw = dict(cfg=cfg, n_cells=80_000, n_items=3 * 80_000, ior=scene.ior)
+    got, st = mk.persistent_render(*args, **kw)
+    ref, _ = mk.persistent_render_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert st["lanes"] < kw["n_items"]
+    a, b = got.cpu().numpy(), ref.cpu().numpy()
+    dev = (np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)).max(axis=0)
+    assert np.quantile(dev, 0.999) < 1e-5 and np.mean(dev > 1e-3) < 1e-3
+
+
+def test_render_image_launches_the_kernel(cuda):
+    cfg = tp.RenderConfig(width=32, height=24, spp=2, max_depth=16)
+    before = mk.persistent_render.launches
+    img = tp.render_image(tp.get_scene("box", 32, 24).to(cuda), cfg)
+    assert mk.persistent_render.launches == before + 1
+    assert img.device.type == "cuda" and img.shape == (24, 32, 3)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
