@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``cpu_path_tracing_tpu_torch/csrc`` and
-drives the forward render the way a user does.  Each phase prints one JSON
-line; any failed check raises, so the script exits non-zero.
+Builds the port's CUDA kernels from ``cpu_path_tracing_tpu_torch/csrc`` and
+drives the forward render and the inverse-rendering step the way a user
+does.  Each phase prints one JSON line; any failed check raises, so the
+script exits non-zero.
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
-2. build: nvcc seconds and the kernel's registers and spills.
+2. build: nvcc seconds and each kernel's registers, stack and spills.
 3. kernel_vs_plain: for every registered scene at 64x48, 2 spp, the
    kernel's per-item radiance against its plain PyTorch version on the card.
    Tier 1, max_depth 8: scale-aware deviation p99.9 < 1e-5 and fewer than
@@ -27,6 +28,22 @@ line; any failed check raises, so the script exits non-zero.
    (1 warm-up, median of 3), the plain version once at the same size, and
    the kernel held to it on all 25,165,824 items by the tier-1 limits.
    "Rays" are path segments (live paths summed over bounces).
+6. replay_vs_plain: the replay kernel's ``[7N+6]`` gradient partials against
+   its plain version (float64 accumulation) on the card, for every scene
+   of at most 40 spheres at 64x48, 2 spp, max_depth 8 and 100, with a
+   seeded normal cotangent: segments equal, each block (cq, rr_w, ge, gbg)
+   within 1e-4 of its largest magnitude + 1e-7.  Then two regenerating
+   launches on box 400x400 at nonzero cell_start and sample_start (one past
+   the last cell), two launches bitwise equal, and random_spheres (100
+   spheres) rejected with ValueError.
+7. train_path: the production inverse step (box 400x400, 64 total spp,
+   max_depth 100, albedo and emission from +0.02, Adam lr 1e-2, 131,072-cell
+   chunks: 5 per step): one warm-up step and 5 steps timed with CUDA
+   events; steps/s, 5 replay launches per step, the loss each step (finite
+   and falling), the forward and replay kernel ms on the first full chunk,
+   and both kernels against their plain versions there: the forward by
+   tier 1 on all 2,097,152 items, the replay by the block limits above with
+   the step's own cotangent.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -72,6 +89,39 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def ptxas_entries(log: str) -> list:
+    """Per kernel: registers and the stack/spill line of ``nvcc -Xptxas -v``."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            name = next((k for k in ("persistent_render_kernel", "replay_kernel")
+                         if k in mangled), mangled)
+            if "ILi" in mangled:
+                name += "<" + mangled.split("ILi")[1].split("E")[0] + ">"
+            out.append({"kernel": name})
+        elif name and "spill" in ln:
+            out[-1]["stack_spills"] = ln.strip()
+        elif name and "registers" in ln:
+            out[-1]["registers"] = int(ln.split("Used ")[1].split(" registers")[0])
+    return out
+
+
+def replay_deviation(got, ref, n_spheres: int):
+    """Per block of the replay partials: worst |got - ref| and its limit,
+    1e-4 * max|ref block| + 1e-7.  Returns (record, ok, worst |got - ref|)."""
+    from cpu_path_tracing_tpu_torch.ops.replay import partial_blocks
+
+    rec, ok, worst = {}, True, 0.0
+    for name, sl in partial_blocks(n_spheres).items():
+        g, r = got[sl].double().cpu(), ref[sl].double().cpu()
+        err, lim = float((g - r).abs().max()), 1e-4 * float(r.abs().max()) + 1e-7
+        rec[name] = [err, lim]
+        ok = ok and err <= lim
+        worst = max(worst, err)
+    return rec, ok, worst
+
+
 def cuda_time_ms(fn, runs: int = 3):
     """Median CUDA-event time of fn() after one warm-up; returns (ms, last result)."""
     import torch
@@ -101,8 +151,9 @@ def main() -> int:
     import numpy as np
 
     import cpu_path_tracing_tpu_torch as tp
-    from cpu_path_tracing_tpu_torch import _build, render
+    from cpu_path_tracing_tpu_torch import _build, grad, render
     from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+    from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -121,8 +172,11 @@ def main() -> int:
     lib_path = _build.build()
     _build.load()
     log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
+    ptxas = ptxas_entries(log)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "library": lib_path.name,
-          "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]})
+          "ptxas": ptxas})
+    check({e["kernel"] for e in ptxas} >= {"persistent_render_kernel", "replay_kernel<8>"},
+          "the build log lacks a kernel")
 
     # ---- 3. kernel vs plain version, every scene ----
     W, H, SPP = 64, 48, 2
@@ -196,7 +250,7 @@ def main() -> int:
     # ---- 5. the main path at full size ----
     cfg = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
     scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
-    mk.persistent_render.launches = 0
+    mk.persistent_render.launches = rk.replay_persistent.launches = 0
     img = tp.render_image(scene, cfg)
     torch.cuda.synchronize()
     launches = mk.persistent_render.launches
@@ -232,12 +286,146 @@ def main() -> int:
     check(abs(segments - ref_stats["segments"]) <= 1e-3 * ref_stats["segments"],
           "kernel and plain version count different segments")
 
-    emit({"kernels": [{
-        "name": "persistent_render", "route": "cuda",
-        "source": f"{PKG}/csrc/megakernel.cu",
-        "replaces": "cpu_path_tracing_tpu/ops/pallas/megakernel.py:726",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]})
+    k2 = {"name": "persistent_render", "route": "cuda", "source": f"{PKG}/csrc/megakernel.cu",
+          "replaces": "cpu_path_tracing_tpu/ops/pallas/megakernel.py:726",
+          "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms}
+
+    # ---- 6. the replay kernel vs its plain version ----
+    worst = 0.0
+    for name in tp.scene_names():
+        scene = tp.get_scene(name, W, H)
+        table, cam = mk.pack_scene(scene).to(dev), mk.pack_camera(scene).to(dev)
+        rec = {"phase": "replay_vs_plain", "scene": name, "spheres": scene.num_spheres}
+        cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=8)
+        ct = torch.from_numpy(np.random.default_rng(11).normal(0, 1, (cfg.num_cells, 3))
+                              .astype(np.float32)).to(dev)
+        kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=SPP * cfg.num_cells, ior=scene.ior)
+        if scene.num_spheres > rk.MAX_REPLAY_SPHERES:
+            try:
+                rk.replay_persistent(table, cam, (0, 0), ct, **kw)
+                rec["rejected"] = False
+            except ValueError as e:  # the documented rejection is the expected outcome
+                rec["rejected"] = "ROADMAP" in str(e)
+            emit(rec)
+            check(rec["rejected"], f"replay kernel did not reject {name} ({scene.num_spheres} "
+                                   "spheres)")
+            continue
+        ok = True
+        for depth in (8, 100):
+            kw["cfg"] = cfg.replace(max_depth=depth)
+            got, st = rk.replay_persistent(table, cam, (0, 0), ct, **kw)
+            ref, ref_st = rk.replay_persistent_reference(table, cam, (0, 0), ct, **kw)
+            dev_rec, blocks_ok, err = replay_deviation(got, ref, scene.num_spheres)
+            worst = max(worst, err)
+            rec[f"d{depth}_segments"] = [int(st["segments"]), ref_st["segments"]]
+            rec[f"d{depth}_blocks"] = dev_rec
+            ok = ok and blocks_ok and int(st["segments"]) == ref_st["segments"]
+        rec["ok"] = ok
+        emit(rec)
+        check(ok, f"replay kernel vs plain version on {name}")
+
+    cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    scene = tp.get_scene("box", cfg.width, cfg.height).to(dev)
+    table, cam = mk.pack_scene(scene), mk.pack_camera(scene)
+    total = cfg.num_cells
+    for how, cell_start, n_cells, sample_start in (("mid_image", 100_003, 150_001, 5),
+                                                   ("past_last_cell", total - 50_000, 100_000, 6)):
+        ct = torch.from_numpy(np.random.default_rng(12).normal(0, 1, (n_cells, 3))
+                              .astype(np.float32)).to(dev)
+        kw = dict(cfg=cfg, n_cells=n_cells, n_items=2 * n_cells, ior=scene.ior)
+        got, st = rk.replay_persistent(table, cam, (cell_start, sample_start), ct, **kw)
+        again, _ = rk.replay_persistent(table, cam, (cell_start, sample_start), ct, **kw)
+        ref, ref_st = rk.replay_persistent_reference(table, cam, (cell_start, sample_start), ct,
+                                                     **kw)
+        dev_rec, blocks_ok, err = replay_deviation(got, ref, scene.num_spheres)
+        worst = max(worst, err)
+        rec = {"phase": "replay_vs_plain", "case": how, "cell_start": cell_start,
+               "n_cells": n_cells, "sample_start": sample_start, "n_items": kw["n_items"],
+               "lanes": st["lanes"], "items_per_lane": kw["n_items"] / st["lanes"],
+               "segments": [int(st["segments"]), ref_st["segments"]], "blocks": dev_rec,
+               "bitwise_repeat": bool(torch.equal(got, again))}
+        rec["ok"] = (blocks_ok and rec["bitwise_repeat"] and st["lanes"] < kw["n_items"]
+                     and int(st["segments"]) == ref_st["segments"])
+        emit(rec)
+        check(rec["ok"], f"regenerating replay launch ({how}) against the plain version")
+
+    # ---- 7. the production inverse step ----
+    chunk = 1 << 17
+    target = grad.render_target(scene, cfg, chunk)
+    true = grad.split_params(scene, ("albedo", "emission"))
+    params = {k: v + 0.02 for k, v in true.items()}
+    step = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=chunk)
+    mk.persistent_render.launches = rk.replay_persistent.launches = 0
+    losses, step_ms, per_step = [], [], []
+    t0 = time.perf_counter()
+    params, loss = step(params, target)  # warm-up
+    losses.append(float(loss))
+    warm_s = time.perf_counter() - t0
+    for _ in range(5):
+        before = rk.replay_persistent.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, loss = step(params, target)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        per_step.append(rk.replay_persistent.launches - before)
+    k3_launches, k2_train_launches = rk.replay_persistent.launches, mk.persistent_render.launches
+    check(k3_launches >= 1 and k2_train_launches >= 1, "the train step did not launch both kernels")
+
+    # The first full chunk at the current params, with the step's cotangent:
+    # d/d(sum) of sum((sum/S - target)^2) = 2 (sum/S - target) / S.
+    sc = grad.merge_params(scene, params)
+    ids = torch.arange(chunk, device=dev)
+    ct = (2.0 * (render.render_cells_range(sc, cfg, ids, 0, cfg.spp) / cfg.spp - target[:chunk])
+          / cfg.spp).contiguous()
+    table, cam = mk.pack_scene(sc), mk.pack_camera(sc)
+    kw = dict(cfg=cfg, n_cells=chunk, n_items=cfg.spp * chunk, ior=sc.ior)
+    fwd_ms, (fwd, fwd_st) = cuda_time_ms(lambda: mk.persistent_render(table, cam, (0, 0), **kw))
+    fwd_ref, fwd_ref_st = mk.persistent_render_reference(table, cam, (0, 0), **kw)
+    fwd, fwd_ref = fwd.cpu().numpy(), fwd_ref.cpu().numpy()
+    fwd_t1 = tier1(fwd, fwd_ref)
+    k2["max_abs_err"] = max(k2["max_abs_err"], float(np.abs(fwd - fwd_ref).max()))
+    bwd_ms, (got, st) = cuda_time_ms(lambda: rk.replay_persistent(table, cam, (0, 0), ct, **kw))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref, ref_st = rk.replay_persistent_reference(table, cam, (0, 0), ct, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    bwd_plain_ms = start.elapsed_time(end)
+    dev_rec, blocks_ok, err = replay_deviation(got, ref, sc.num_spheres)
+    worst = max(worst, err)
+    mean_err = {k: float((params[k] - true[k]).abs().mean()) for k in params}
+    regs = [e for e in ptxas if e["kernel"] == "replay_kernel<8>"]
+    rec = {"phase": "train_path",
+           "config": "box 400x400, 64 total spp, max_depth 100, albedo+emission, Adam lr 1e-2, "
+                     "cell_chunk 131072",
+           "steps_per_s": 5 / (sum(step_ms) / 1e3), "step_ms": step_ms, "warmup_s": warm_s,
+           "losses": losses, "replay_launches_per_step": per_step,
+           "replay_launches": k3_launches, "forward_launches": k2_train_launches,
+           "forward_kernel_ms_per_chunk": fwd_ms,
+           "forward_chunk_vs_plain": {"segments": [int(fwd_st["segments"]),
+                                                   fwd_ref_st["segments"]],
+                                      "max_abs_err": float(np.abs(fwd - fwd_ref).max()),
+                                      **fwd_t1},
+           "replay_kernel_ms_per_chunk": bwd_ms,
+           "replay_plain_ms_per_chunk": bwd_plain_ms, "chunk_items": kw["n_items"],
+           "chunk_segments": [int(st["segments"]), ref_st["segments"]],
+           "chunk_lanes": st["lanes"], "chunk_occupancy": int(st["segments"]) / (
+               int(st["iters"]) * st["lanes"]),
+           "chunk_blocks": dev_rec, "replay_ptxas": regs, "mean_abs_err_after": mean_err}
+    rec["ok"] = (per_step == [5] * 5 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                 and blocks_ok and int(st["segments"]) == ref_st["segments"] and fwd_t1["ok"]
+                 and abs(int(fwd_st["segments"]) - fwd_ref_st["segments"])
+                 <= 1e-3 * fwd_ref_st["segments"])
+    emit(rec)
+    check(rec["ok"], "the production inverse step")
+
+    k3 = {"name": "replay_persistent", "route": "cuda", "source": f"{PKG}/csrc/replay.cu",
+          "replaces": "cpu_path_tracing_tpu/ops/pallas/replay_kernel.py:248",
+          "launches": k3_launches, "max_abs_err": worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms}
+    emit({"kernels": [k2, k3]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

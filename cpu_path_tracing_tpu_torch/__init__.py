@@ -4,8 +4,11 @@ The port of ``cpu_path_tracing_tpu`` (JAX, Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for an NVIDIA H100.  Module names mirror the JAX
 package's.  The forward render is ported: ``render_image`` renders where
 the scene lives, with the CUDA kernel (``ops/kernels/megakernel.py``,
-``csrc/``) on the card and its plain PyTorch version on the CPU.  This
-package never imports JAX or the JAX package.
+``csrc/``) on the card and its plain PyTorch version on the CPU.  So is
+inverse rendering of albedo, emission and background (``grad.py``), whose
+backward is the analytic replay (``ops/replay.py``; on the card the CUDA
+kernel of ``ops/kernels/replay.py``).  This package never imports JAX or
+the JAX package.
 """
 
 from .config import RenderConfig

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``csrc/`` are compiled at first use by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  The library lands in ``_build/`` beside this file,
+(``sm_90a``), one ``nvcc -c`` per source, all started together, and linked
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.  The library lands in ``_build/`` beside this file,
 named by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one loads at once.  The build uses IEEE division, square root
 and trigonometry (no ``--use_fast_math``), as ``csrc/step_math.cuh``
@@ -26,7 +27,7 @@ BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no contraction of a*b+c into fma, so the kernel rounds as the
 # plain PyTorch version does, term for term (PERF.md: the fmad choice).
-FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str | None:
@@ -61,20 +62,34 @@ def build(flags: tuple[str, ...] = FLAGS) -> Path:
     lib = library_path(flags)
     if lib.exists():
         return lib
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["nvcc", *ARCH_FLAGS, *flags, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    objs = [lib.with_name(f"{lib.stem}.{src.stem}.{tag}.o") for src in _sources()]
+    tmp = lib.with_suffix(f".{tag}")
+    compiles = [["nvcc", *ARCH_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+    link = ["nvcc", *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(f"nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda); "
-                           f"cannot run: {' '.join(cmd)}")
-    cmd[0] = nvcc
+                           f"cannot run: {' '.join(compiles[0])}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    log = []
+    try:
+        procs = [subprocess.Popen([nvcc, *cmd[1:]], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for cmd in compiles]
+        outs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, out in zip(compiles, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            log.append(out)
+        proc = subprocess.run([nvcc, *link[1:]], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, lib)
     return lib
 
@@ -86,6 +101,11 @@ def load(flags: tuple[str, ...] = FLAGS) -> ctypes.CDLL:
     vp = ctypes.c_void_p
     lib.pt_persistent_render.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), vp]
     lib.pt_persistent_render.restype = ctypes.c_int
+    lib.pt_replay_grid.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+    lib.pt_replay_grid.restype = ctypes.c_int
+    lib.pt_replay_persistent.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp]
+    lib.pt_replay_persistent.restype = ctypes.c_int
     lib.pt_error_string.argtypes = [ctypes.c_int]
     lib.pt_error_string.restype = ctypes.c_char_p
     return lib

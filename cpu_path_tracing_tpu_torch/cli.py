@@ -1,29 +1,34 @@
-"""Command-line interface: the ``render`` subcommand.
+"""Command-line interface: the ``render`` and ``invert`` subcommands.
 
-Counterpart of ``cpu_path_tracing_tpu/cli.py``'s ``render`` without the
-mesh, tile, checkpoint and multi-host options:
+Counterpart of ``cpu_path_tracing_tpu/cli.py``'s ``render`` and ``invert``
+without the mesh, tile, checkpoint and multi-host options:
 
     python -m cpu_path_tracing_tpu_torch.cli render --scene box_mirror \\
         --width 1024 --height 768 --total-spp 32 --device cuda -o disco.png
+    python -m cpu_path_tracing_tpu_torch.cli invert --scene box \\
+        --width 400 --height 400 --spp 16 --steps 100 --device cuda
 
 ``--total-spp N`` keeps the reference's meaning (N / subpixels^2 samples
-per subpixel cell, ``src/main.cpp:203-206``).
+per subpixel cell, ``src/main.cpp:203-206``).  ``invert`` renders the
+scene as the target, perturbs the ``--fields`` with seeded normal noise and
+fits them back with Adam, printing one JSON line per reported step.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
+
+import numpy as np
+import torch
 
 from . import RenderConfig, get_scene, scene_names, write_png, write_ppm
 from .render import render_image
 
 
-def _parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="cpu_path_tracing_tpu_torch.cli")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("render", help="render a registered scene to PNG or PPM")
+def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--scene", default="box_mirror", choices=scene_names())
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=768)
@@ -34,7 +39,22 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cpu", help="torch device, e.g. cpu or cuda")
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="cpu_path_tracing_tpu_torch.cli")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("render", help="render a registered scene to PNG or PPM")
+    _add_common(p)
     p.add_argument("-o", "--out", default="render.png", help=".png or .ppm")
+    p = sub.add_parser("invert", help="inverse rendering (recover scene params)")
+    _add_common(p)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--fields", default="albedo,emission")
+    p.add_argument("--perturb", type=float, default=0.05)
+    p.add_argument("--cell-chunk", type=int, default=1 << 17,
+                   help="cells per gradient-accumulation chunk")
     return ap
 
 
@@ -60,9 +80,38 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_invert(args) -> int:
+    from .grad import check_replay_fields, make_accum_train_step, render_target, split_params
+
+    cfg = _config(args)
+    fields = tuple(args.fields.split(","))
+    check_replay_fields(fields)
+    scene = get_scene(args.scene, cfg.width, cfg.height).to(args.device)
+    t0 = time.perf_counter()
+    target = render_target(scene, cfg, args.cell_chunk)
+    print(f"target rendered in {time.perf_counter() - t0:.2f}s", file=sys.stderr)
+
+    true_params = split_params(scene, fields)
+    rng = np.random.default_rng(args.seed)
+    params = {k: v + torch.as_tensor(rng.normal(0, args.perturb, tuple(v.shape)), dtype=v.dtype,
+                                     device=v.device)
+              for k, v in true_params.items()}
+    step_fn = make_accum_train_step(scene, cfg, args.lr, cell_chunk=args.cell_chunk)
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        params, loss = step_fn(params, target)
+        if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
+            loss = float(loss)  # waits for the device
+            sps = (step + 1) / (time.perf_counter() - t0)
+            errs = {k: float((params[k] - true_params[k]).abs().mean()) for k in params}
+            print(json.dumps({"step": step, "loss": loss, "steps_per_s": round(sps, 4),
+                              "mean_abs_err": errs}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    return {"render": cmd_render}[args.cmd](args)
+    return {"render": cmd_render, "invert": cmd_invert}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -36,7 +36,8 @@ class RenderConfig:
     # Cells per render_cells call in render_image; None = the whole image.
     ray_chunk: Optional[int] = None
     # Bounce loop of the plain path.  Only 'while' (early exit) is ported;
-    # the differentiable 'scan' loop belongs to the backward slice.
+    # the reverse-mode 'scan' loop comes with the geometry backward (ROADMAP.md
+    # Queue 1 item 8).
     loop: str = "while"
     # 'auto' = the CUDA kernel for a float32 scene on a CUDA device, the
     # plain PyTorch version for a scene on the CPU (render.resolve_integrator).

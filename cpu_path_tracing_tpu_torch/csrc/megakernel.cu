@@ -55,7 +55,8 @@ persistent_render_kernel(const float* __restrict__ table, const float* __restric
     }
     ++trips;
     float rx, ry, rz;
-    if (pt::bounce(s, s_table, s_cam, p, rx, ry, rz)) {
+    pt::BounceAux unused;
+    if (pt::bounce<false>(s, s_table, s_cam, p, rx, ry, rz, unused)) {
       out[item] = rx;
       out[p.n_items + item] = ry;
       out[2 * p.n_items + item] = rz;

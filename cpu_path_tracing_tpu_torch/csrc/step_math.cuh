@@ -16,6 +16,10 @@
 //     the miss sentinel, which is what the guarded form gives.
 // Only the chosen material's sampler is computed.  The plain version
 // blends all three with exact 0/1 masks, which gives the same direction.
+//
+// bounce<true> also fills a BounceAux with the internals the replay
+// backward consumes (csrc/replay.cu; make_step_math(with_aux=True) in the
+// JAX package); bounce<false>, the forward kernel's, compiles without them.
 
 #pragma once
 
@@ -50,6 +54,19 @@ struct Path {
   float emx, emy, emz;  // accumulated emission
   int depth;
   uint32_t k0, k1;      // item key
+};
+
+// What one bounce of a live path did, for the replay backward: the bounce
+// internals of ops/integrator.bounce_step(with_aux=True).  For a live path
+// hit is sidx >= 0 and die_miss its negation.
+struct BounceAux {
+  int sidx;                  // hit sphere index, -1 on a miss
+  float thr_x, thr_y, thr_z;  // throughput before this bounce's update
+  float eh_x, eh_y, eh_z;     // the hit sphere's emission (hit only)
+  float sky_x, sky_y, sky_z;  // background radiance (miss only)
+  float sky_t;               // its lerp parameter (miss only)
+  bool cont;                 // hit and not killed by the roulette
+  bool rr_scaled;            // roulette applied and survived: colf = 1/p
 };
 
 #define PT_ROUND(r)                        \
@@ -133,9 +150,12 @@ __device__ __forceinline__ void start_path(Path& s, long long item, const float*
 }
 
 // One bounce of a live path.  Returns true when the path ended; its
-// radiance is then in (rx, ry, rz).
+// radiance is then in (rx, ry, rz).  With kAux, ``aux`` describes the
+// bounce; a miss has sidx -1 and cont and rr_scaled false.
+template <bool kAux>
 __device__ __forceinline__ bool bounce(Path& s, const float* table, const float* cam,
-                                       const Params& p, float& rx, float& ry, float& rz) {
+                                       const Params& p, float& rx, float& ry, float& rz,
+                                       BounceAux& aux) {
   // Bounce uniforms: purpose depth+1, blocks 0 and 1; the 4th word is the
   // reserved u_c (ops/rng.py).
   const uint32_t purpose = static_cast<uint32_t>(s.depth + 1);
@@ -175,13 +195,31 @@ __device__ __forceinline__ bool bounce(Path& s, const float* table, const float*
     }
   }
 
+  if constexpr (kAux) {
+    aux.sidx = best;
+    aux.thr_x = s.thx;
+    aux.thr_y = s.thy;
+    aux.thr_z = s.thz;
+    aux.cont = false;
+    aux.rr_scaled = false;
+  }
+
   // ---- miss: background gradient (src/main.cpp:115-120) ----
   const float dinv = rsqrt_safe(a_quad);
   if (best < 0) {
     const float sky_t = (dy * dinv) * 0.5f + 0.5f;
-    rx = s.emx + s.thx * (cam[13] + sky_t * (cam[16] - cam[13]));
-    ry = s.emy + s.thy * (cam[14] + sky_t * (cam[17] - cam[14]));
-    rz = s.emz + s.thz * (cam[15] + sky_t * (cam[18] - cam[15]));
+    const float skx = cam[13] + sky_t * (cam[16] - cam[13]);
+    const float sky = cam[14] + sky_t * (cam[17] - cam[14]);
+    const float skz = cam[15] + sky_t * (cam[18] - cam[15]);
+    if constexpr (kAux) {
+      aux.sky_x = skx;
+      aux.sky_y = sky;
+      aux.sky_z = skz;
+      aux.sky_t = sky_t;
+    }
+    rx = s.emx + s.thx * skx;
+    ry = s.emy + s.thy * sky;
+    rz = s.emz + s.thz * skz;
     return true;
   }
 
@@ -198,6 +236,11 @@ __device__ __forceinline__ bool bounce(Path& s, const float* table, const float*
 
   // ---- emission pickup, then Russian roulette (src/main.cpp:126-137) ----
   const float alx = hs[13], aly = hs[14], alz = hs[15];
+  if constexpr (kAux) {
+    aux.eh_x = hs[10];
+    aux.eh_y = hs[11];
+    aux.eh_z = hs[12];
+  }
   s.emx = s.emx + s.thx * hs[10];
   s.emy = s.emy + s.thy * hs[11];
   s.emz = s.emz + s.thz * hs[12];
@@ -211,6 +254,10 @@ __device__ __forceinline__ bool bounce(Path& s, const float* table, const float*
     return true;
   }
   const float colf = do_rr ? 1.0f / (pmax > 0.0f ? pmax : 1.0f) : 1.0f;
+  if constexpr (kAux) {
+    aux.cont = true;  // the depth limit below ends the path after the update
+    aux.rr_scaled = do_rr;
+  }
 
   // ---- scatter (src/main.cpp:141-154) ----
   const float mcode = hs[16];

@@ -76,7 +76,9 @@ def bounce_step(scene, state: RayState, uniforms, depth, *, rr_depth, epsilon, i
     emit_new = emit + thr * em_h  # src/main.cpp:126 (before RR)
 
     # ---- Russian roulette (src/main.cpp:128-137) ----
-    p = torch.maximum(al_h[:, 0], torch.maximum(al_h[:, 1], al_h[:, 2]))  # uncapped
+    # Uncapped.  amax propagates NaN and splits a tie's gradient evenly, as
+    # jnp.max does (nested torch.maximum would give 1/2, 1/4, 1/4).
+    p = al_h.amax(dim=-1)
     p_inv = 1.0 / torch.where(p > 0, p, torch.ones_like(p))
     do_rr = torch.as_tensor(depth, device=o.device) > rr_depth
     survive = u_rr < p
@@ -115,7 +117,7 @@ def radiance(scene, origins, directions, keys, *, max_depth=100, rr_depth=4,
     bounces (int), 'depth': bounce steps run (int)}``."""
     if loop != "while":
         raise ValueError(f"loop={loop!r} is not ported yet; only 'while' "
-                         "(ROADMAP Queue 1 item 7 ports the scan loop)")
+                         "(ROADMAP Queue 1 item 8 ports the scan loop)")
     st = init_state(origins, directions)
     kw = dict(rr_depth=rr_depth, epsilon=epsilon, inf=inf)
     segments = 0

@@ -120,6 +120,24 @@ def check_kernel_config(cfg: RenderConfig, dtype: torch.dtype) -> None:
                          f"kernel has uniform jitter {todo}")
 
 
+def item_rays(cfg: RenderConfig, camera: Camera, dyn, n_cells: int, i0: int, i1: int,
+              dtype, device):
+    """The regeneration of items [i0, i1) of a launch, as the kernels do it:
+    item = sample * n_cells + c, cell = min(cell_start + c, cells - 1).
+    Returns (c [B], item keys (a0, a1), origins [B,3], directions [B,3])."""
+    from ...render import screen_coords  # render imports this module
+
+    cell_start, sample_start = (int(v) for v in dyn)
+    item = torch.arange(i0, i1, dtype=torch.int64, device=device)
+    c_idx = item % n_cells
+    cell = torch.clamp(cell_start + c_idx, max=cfg.num_cells - 1)
+    a0, a1 = rng_ops.item_keys(cfg.seed, cell, sample_start + item // n_cells)
+    u = rng_ops.camera_uniforms(a0, a1).to(dtype)
+    s, t = screen_coords(cfg, cell, u, dtype)
+    o, d = get_rays(camera, s, t, u[:, 2], u[:, 3])
+    return c_idx, (a0, a1), o, d
+
+
 def persistent_render_reference(table, cam, dyn, *, cfg: RenderConfig, n_cells: int,
                                 n_items: int, ior: float = 2.0):
     """Plain PyTorch version of ``persistent_render``: the same arguments,
@@ -127,26 +145,19 @@ def persistent_render_reference(table, cam, dyn, *, cfg: RenderConfig, n_cells: 
     c, cell = min(cell_start + c, cells - 1)) and stats.  A batched bounce
     loop over the items, ``REFERENCE_CHUNK`` at a time, in the table's dtype
     (float32 or float64); also renders ``cfg.jitter='tent'``."""
-    from ...render import screen_coords  # render imports this module
-
     _check(table, cam, dyn)
-    cell_start, sample_start = (int(v) for v in dyn)
     spheres, camera = _unpack(table, cam, ior)
     dt, dev = table.dtype, table.device
     out = torch.empty((3, n_items), dtype=dt, device=dev)
     segments = iters = 0
     chunk = REFERENCE_CHUNK
     for i0 in range(0, n_items, chunk):
-        item = torch.arange(i0, min(i0 + chunk, n_items), dtype=torch.int64, device=dev)
-        cell = torch.clamp(cell_start + item % n_cells, max=cfg.num_cells - 1)
-        a0, a1 = rng_ops.item_keys(cfg.seed, cell, sample_start + item // n_cells)
-        u = rng_ops.camera_uniforms(a0, a1).to(dt)
-        s, t = screen_coords(cfg, cell, u, dt)
-        o, d = get_rays(camera, s, t, u[:, 2], u[:, 3])
-        rad, st = radiance(spheres, o, d, (a0, a1), max_depth=cfg.max_depth,
+        i1 = min(i0 + chunk, n_items)
+        _, keys, o, d = item_rays(cfg, camera, dyn, n_cells, i0, i1, dt, dev)
+        rad, st = radiance(spheres, o, d, keys, max_depth=cfg.max_depth,
                            rr_depth=cfg.rr_depth, epsilon=cfg.epsilon, inf=cfg.inf,
                            with_stats=True)
-        out[:, i0:i0 + item.shape[0]] = rad.T
+        out[:, i0:i1] = rad.T
         segments += st["segments"]
         iters += st["depth"]
     return out, {"segments": segments, "iters": iters, "lanes": min(chunk, n_items)}
@@ -166,6 +177,20 @@ class _Params(ctypes.Structure):
         ("eps", ctypes.c_float), ("inf", ctypes.c_float),
         ("ratio_front", ctypes.c_float), ("ratio_back", ctypes.c_float),
     ]
+
+
+def launch_params(cfg: RenderConfig, dyn, *, n_spheres: int, n_cells: int, n_items: int,
+                  ior: float) -> _Params:
+    """The ``pt::Params`` of a launch over items [0, n_items) of the span."""
+    cell_start, sample_start = (int(v) for v in dyn)
+    key0, key1 = rng_ops.master_key(cfg.seed)
+    return _Params(
+        n_items=n_items, n_cells=n_cells, total_cells=cfg.num_cells, cell_start=cell_start,
+        sample_start=sample_start, n_spheres=n_spheres, width=cfg.width, height=cfg.height,
+        ns=cfg.num_subpixels, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
+        key0=key0, key1=key1, sub_len=1.0 / cfg.num_subpixels, inv_w=1.0 / cfg.width,
+        inv_h=1.0 / cfg.height, eps=cfg.epsilon, inf=cfg.inf,
+        ratio_front=float(np.float32(1.0 / ior)), ratio_back=float(np.float32(ior)))
 
 
 def persistent_render(table, cam, dyn, *, cfg: RenderConfig, n_cells: int, n_items: int,
@@ -199,15 +224,7 @@ def persistent_render(table, cam, dyn, *, cfg: RenderConfig, n_cells: int, n_ite
         raise ValueError(f"bad item range: n_cells={n_cells}, n_items={n_items}")
 
     lib = _build.load()
-    cell_start, sample_start = (int(v) for v in dyn)
-    key0, key1 = rng_ops.master_key(cfg.seed)
-    params = _Params(
-        n_items=n_items, n_cells=n_cells, total_cells=cfg.num_cells, cell_start=cell_start,
-        sample_start=sample_start, n_spheres=n, width=cfg.width, height=cfg.height,
-        ns=cfg.num_subpixels, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
-        key0=key0, key1=key1, sub_len=1.0 / cfg.num_subpixels, inv_w=1.0 / cfg.width,
-        inv_h=1.0 / cfg.height, eps=cfg.epsilon, inf=cfg.inf,
-        ratio_front=float(np.float32(1.0 / ior)), ratio_back=float(np.float32(ior)))
+    params = launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
     out = torch.empty((3, n_items), dtype=torch.float32, device=table.device)
     counters = torch.zeros(2, dtype=torch.int64, device=table.device)
     lanes = ctypes.c_longlong(0)

@@ -82,7 +82,7 @@ def resolve_integrator(scene, cfg: RenderConfig) -> str:
         raise ValueError(f"integrator={cfg.integrator!r}: only 'auto' is ported")
     if cfg.loop != "while":
         raise ValueError(f"loop={cfg.loop!r}: only 'while' is ported (ROADMAP.md "
-                         "Queue 1 item 7 brings the scan loop)")
+                         "Queue 1 item 8 brings the scan loop)")
     if not _on_cuda(scene):
         return "plain"
     check_kernel_config(cfg, scene.dtype)

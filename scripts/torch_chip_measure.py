@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 scripts/torch_chip_measure.py [--part fmad|profile|scenes|all]
+    python3 scripts/torch_chip_measure.py [--part build|fmad|profile|scenes|train|all]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
 
+- build: wall seconds of the kernels' build from nothing in two forms, in
+  the order parallel, single, parallel, single: ``_build.build`` (one
+  ``nvcc -c`` per source, started together, then a link) and one ``nvcc``
+  command over every source.  Each builds into its own directory under
+  ``_build/``, removed afterwards.
 - fmad: builds the kernel with and without ``-fmad=false`` and reports,
   for each, the per-item parity against the plain version at 64x48, 2 spp,
   max_depth 8 and 100 (six scenes), then the kernel's CUDA-event time on
@@ -16,6 +21,10 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   share of the window the device was busy.
 - scenes: the kernel's Mrays/s, segments per item and occupancy for every
   scene at the main path's size (1 warm-up, median of 3).
+- train: the production inverse step (box 400x400, 64 total spp, max_depth
+  100, albedo and emission, 131,072-cell chunks): the target's render time,
+  a cProfile of the first step (the top functions by cumulative time), the
+  second step's time, then ``torch.profiler`` over 3 steps as in profile.
 
 Imports nothing of JAX.  Needs a CUDA device.
 """
@@ -24,10 +33,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import cProfile
 import json
 import os
+import pstats
+import shutil
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -83,6 +96,28 @@ def packed(name, cfg, dev):
     return mk.pack_scene(scene).to(dev), mk.pack_camera(scene).to(dev), kw
 
 
+def part_build(dev):
+    nvcc, real_dir = _build.find_nvcc(), _build.BUILD_DIR
+    for form in ("parallel", "single", "parallel", "single"):
+        out = real_dir / f"measure_{form}"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        t0 = time.perf_counter()
+        if form == "parallel":
+            _build.BUILD_DIR = out
+            try:
+                _build.build()
+            finally:
+                _build.BUILD_DIR = real_dir
+        else:
+            subprocess.run([nvcc, *_build.ARCH_FLAGS, *_build.FLAGS, "-shared", "-o",
+                            str(out / "lib.so"), *map(str, _build._sources())],
+                           check=True, capture_output=True)
+        emit({"build_form": form, "seconds": time.perf_counter() - t0,
+              "sources": len(_build._sources())})
+        shutil.rmtree(out)
+
+
 def part_fmad(dev):
     for name, flags in VARIANTS.items():
         log = _build.build(flags).with_suffix(".log").read_text()
@@ -111,9 +146,38 @@ def part_fmad(dev):
         emit({"variant": name, "main_path_kernel_ms": times, "segments": int(st["segments"])})
 
 
-def part_profile(dev):
+def profiled(call, runs: int = 3) -> dict:
+    """``torch.profiler`` over ``runs`` calls: the window's CUDA-event time,
+    device time by kernel, and the share of the window the device was busy.
+    Only device-side rows count: a CPU-side op or autograd range also
+    carries its kernels' time as self device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for _ in range(runs):
+            call()
+        e1.record()
+        torch.cuda.synchronize()
+    window_ms = e0.elapsed_time(e1)
+    rows = []
+    for k in prof.key_averages():
+        d = getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
+        if d > 0 and k.device_type != torch.autograd.DeviceType.CPU:
+            rows.append((d / 1e3, k.count, k.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    host = sorted(((k.self_cpu_time_total / 1e3, k.count, k.key) for k in prof.key_averages()
+                   if k.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+    return {"calls": runs, "window_ms": window_ms, "device_ms": device_ms,
+            "busy_share": device_ms / window_ms,
+            "top": [{"ms": ms, "count": n, "name": key[:80]} for ms, n, key in rows[:12]],
+            "top_host_self": [{"ms": ms, "count": n, "name": key[:80]}
+                              for ms, n, key in host[:10]]}
+
+
+def part_profile(dev):
     scene = tp.get_scene("box_mirror", MAIN.width, MAIN.height).to(dev)
     ids = torch.arange(MAIN.num_cells, device=dev)
 
@@ -122,24 +186,43 @@ def part_profile(dev):
 
     call()
     torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        e0.record()
-        for _ in range(3):
-            call()
-        e1.record()
-        torch.cuda.synchronize()
-    window_ms = e0.elapsed_time(e1)
-    rows = []
-    for k in prof.key_averages():
-        d = getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
-        if d > 0:
-            rows.append((d / 1e3, k.count, k.key))
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
-    emit({"window_ms_3_calls": window_ms, "device_ms": device_ms,
-          "busy_share": device_ms / window_ms,
-          "top": [{"ms": ms, "count": n, "name": key[:80]} for ms, n, key in rows[:12]]})
+    emit(profiled(call))
+
+
+def part_train(dev):
+    from cpu_path_tracing_tpu_torch import grad
+
+    cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    chunk = 1 << 17
+    scene = tp.get_scene("box", cfg.width, cfg.height).to(dev)
+    t0 = time.perf_counter()
+    target = grad.render_target(scene, cfg, chunk)
+    torch.cuda.synchronize()
+    target_s = time.perf_counter() - t0
+    state = {"params": {k: v + 0.02 for k, v in grad.split_params(
+        scene, ("albedo", "emission")).items()}}
+    step = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=chunk)
+
+    def call():
+        state["params"], loss = step(state["params"], target)
+        return float(loss)
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    call()
+    prof.disable()
+    first_s = time.perf_counter() - t0
+    top = pstats.Stats(prof).sort_stats("cumulative")
+    rows = sorted(((v[3], v[1], f"{k[0].split('/')[-1]}:{k[1]}:{k[2]}")
+                   for k, v in top.stats.items()), reverse=True)[:25]
+    t0 = time.perf_counter()
+    call()
+    second_s = time.perf_counter() - t0
+    emit({"train": "box 400x400, 64 total spp, max_depth 100, 5 chunks", "target_s": target_s,
+          "first_step_s": first_s, "second_step_s": second_s,
+          "first_step_top_cumulative": [{"s": c, "calls": n, "fn": f} for c, n, f in rows]})
+    emit({"train_profile": profiled(call)})
 
 
 def part_scenes(dev):
@@ -158,14 +241,16 @@ def part_scenes(dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--part", choices=("fmad", "profile", "scenes", "all"), default="all")
+    ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "all"),
+                    default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     print("smi", smi(), flush=True)
-    for part, run in (("fmad", part_fmad), ("profile", part_profile), ("scenes", part_scenes)):
+    for part, run in (("build", part_build), ("fmad", part_fmad), ("profile", part_profile),
+                      ("scenes", part_scenes), ("train", part_train)):
         if args.part in (part, "all"):
             run(dev)
     print("smi", smi(), flush=True)

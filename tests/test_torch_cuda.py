@@ -12,6 +12,8 @@ import torch
 
 import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
+from cpu_path_tracing_tpu_torch.ops.replay import partial_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -64,3 +66,38 @@ def test_render_image_launches_the_kernel(cuda):
     assert mk.persistent_render.launches == before + 1
     assert img.device.type == "cuda" and img.shape == (24, 32, 3)
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+
+
+def _replay_launch(cuda):
+    """A regenerating replay launch (more items than threads) at a nonzero
+    cell_start and sample_start, over a span that runs past the last cell."""
+    cfg = tp.RenderConfig(width=256, height=192, spp=8, max_depth=100)
+    scene = tp.get_scene("box", 256, 192)
+    ct = np.random.default_rng(7).normal(0, 1, (80_000, 3)).astype(np.float32)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), (150_001, 5),
+            torch.from_numpy(ct).to(cuda))
+    kw = dict(cfg=cfg, n_cells=80_000, n_items=3 * 80_000, ior=scene.ior)
+    return scene, args, kw
+
+
+def test_replay_kernel_matches_plain_version(cuda):
+    """The replay kernel against its plain version (float64 accumulation):
+    segments equal, each partial block within 1e-4 of its largest
+    magnitude + 1e-7."""
+    scene, args, kw = _replay_launch(cuda)
+    before = rk.replay_persistent.launches
+    got, st = rk.replay_persistent(*args, **kw)
+    ref, ref_st = rk.replay_persistent_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.replay_persistent.launches == before + 1 and st["lanes"] < kw["n_items"]
+    assert int(st["segments"]) == ref_st["segments"]
+    for name, sl in partial_blocks(scene.num_spheres).items():
+        g, r = got[sl].cpu(), ref[sl].cpu()
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max()) + 1e-7, name
+
+
+def test_replay_kernel_is_bitwise_repeatable(cuda):
+    _, args, kw = _replay_launch(cuda)
+    first, _ = rk.replay_persistent(*args, **kw)
+    second, _ = rk.replay_persistent(*args, **kw)
+    assert torch.equal(first, second)

@@ -7,6 +7,9 @@ ulp on some rays, so fields agree within 1e-5 scale-aware on >= 99.9% of
 rays (a discrete decision can flip on the rest).
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,9 +17,11 @@ import torch
 
 import cpu_path_tracing_tpu as pt
 from cpu_path_tracing_tpu.ops import integrator as jint
+from cpu_path_tracing_tpu.render import render_cells_range as jax_render_range
 import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch.ops import integrator as tint
 from cpu_path_tracing_tpu_torch.ops.intersect import intersect_scene
+from cpu_path_tracing_tpu_torch.render import render_cells_range
 
 torch.set_num_threads(1)
 
@@ -80,6 +85,42 @@ def test_bounce_step_f32(name):
     for field, a, b in _run_both(name, jnp.float32, torch.float32, 6):
         assert a.shape == b.shape, field
         assert float(np.mean(_ray_dev(a, b) < 1e-5)) >= 0.999, field
+
+
+def _carry(js):
+    """The JAX scene's arrays, copied exactly into a port scene."""
+    arrays = {f: np.asarray(getattr(js, f)) for f in
+              ("p0", "radius", "anchor_dir", "emission", "albedo", "material", "background")}
+    arrays.update({f: np.asarray(getattr(js.camera, f)) for f in
+                   ("position", "look_at", "up", "aspect_ratio", "vertical_fov_radians",
+                    "aperture", "focus_distance", "origin_advance")})
+    return tp.scene_from_arrays(arrays, ior=js.ior)
+
+
+def test_albedo_gradient_splits_roulette_ties_evenly():
+    """Roulette's p = max(albedo) on tied channels (box: white walls, the
+    light, two spheres at (1,1,1)).  ``jnp.max`` splits the gradient evenly
+    among the ties; the port's autograd must do the same (a nested
+    ``torch.maximum`` gave 1/2, 1/4, 1/4).  Autograd of the port's plain
+    forward against ``jax.grad`` of the scan path, float64, 1e-9 relative."""
+    jcfg = pt.RenderConfig(width=8, height=6, spp=2, max_depth=14, loop="scan",
+                           integrator="batch")
+    tcfg = tp.RenderConfig(width=8, height=6, spp=2, max_depth=14)
+    js = pt.get_scene("box", 8, 6, dtype=jnp.float64)
+    ct = np.random.default_rng(2).normal(0, 1, (jcfg.num_cells, 3))
+    ids = np.arange(jcfg.num_cells)
+
+    def jloss(albedo):
+        sc = dataclasses.replace(js, albedo=albedo)
+        return jnp.sum(jax_render_range(sc, jcfg, jnp.asarray(ids), 0, 2) * ct)
+
+    ref = np.asarray(jax.grad(jloss)(js.albedo))
+    ts = _carry(js)
+    albedo = ts.albedo.clone().requires_grad_(True)
+    ts.albedo = albedo
+    out = render_cells_range(ts, tcfg, torch.from_numpy(ids), 0, 2)
+    (got,) = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), albedo)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9, atol=1e-9 * np.abs(ref).max())
 
 
 def test_lowest_index_wins_ties():
