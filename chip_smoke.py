@@ -45,6 +45,28 @@ script exits non-zero.
    tier 1 on all 2,097,152 items, the replay by the block limits above with
    the step's own cotangent.
 
+8. step_vs_plain and step_vs_persistent: for every registered scene at
+   64x48, 2 spp, the per-step kernel's per-item radiance (the per-step
+   loop, ``ops/wavefront.drive_items``) against the plain step on the card
+   by tier 1 (max_depth 8) and tier 2 (max_depth 100), and against the
+   whole-render kernel bitwise, with equal segment counts.
+9. step_regen: per-step loops of 65,536 lanes over more items, so lanes
+   start several items, at a nonzero cell_start and sample_start (one also
+   through ``render_cells_range``, one over a span past the last cell):
+   bitwise equal to the whole-render kernel, tier 1 against the plain step.
+10. bench_path: the per-step slice at full size, ``cli bench --scene
+   box_mirror --total-spp 32 --device cuda`` (1024x768, max_depth 100, a
+   pool of 524,288 lanes; one warm-up and 3 timed runs): its RenderReport,
+   the per-step kernel's launches, the kernel's own time (device rows of
+   torch.profiler over one render) per render and per step, the card's
+   idle share in that window, the lane-state bytes it moves and their
+   rate; then all 25,165,824 items held to the whole-render
+   kernel bitwise and to the plain step (run once, timed) by tier 1.
+11. wavefront_route: a float64 scene and tent-jitter scenes on the card
+   through integrator 'auto': ``resolve_integrator`` gives 'wavefront', no
+   kernel launches, and the card's per-cell sums agree with the CPU's
+   (1e-9 relative in float64; tier 1 in float32).
+
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -95,8 +117,8 @@ def ptxas_entries(log: str) -> list:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            name = next((k for k in ("persistent_render_kernel", "replay_kernel")
-                         if k in mangled), mangled)
+            name = next((k for k in ("persistent_render_kernel", "megakernel_step_kernel",
+                                     "replay_kernel") if k in mangled), mangled)
             if "ILi" in mangled:
                 name += "<" + mangled.split("ILi")[1].split("E")[0] + ">"
             out.append({"kernel": name})
@@ -151,7 +173,8 @@ def main() -> int:
     import numpy as np
 
     import cpu_path_tracing_tpu_torch as tp
-    from cpu_path_tracing_tpu_torch import _build, grad, render
+    from cpu_path_tracing_tpu_torch import _build, cli, grad, render
+    from cpu_path_tracing_tpu_torch.ops import wavefront
     from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
     from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
 
@@ -175,8 +198,8 @@ def main() -> int:
     ptxas = ptxas_entries(log)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "library": lib_path.name,
           "ptxas": ptxas})
-    check({e["kernel"] for e in ptxas} >= {"persistent_render_kernel", "replay_kernel<8>"},
-          "the build log lacks a kernel")
+    check({e["kernel"] for e in ptxas} >= {"persistent_render_kernel", "megakernel_step_kernel",
+                                           "replay_kernel<8>"}, "the build log lacks a kernel")
 
     # ---- 3. kernel vs plain version, every scene ----
     W, H, SPP = 64, 48, 2
@@ -425,7 +448,205 @@ def main() -> int:
     k3 = {"name": "replay_persistent", "route": "cuda", "source": f"{PKG}/csrc/replay.cu",
           "replaces": "cpu_path_tracing_tpu/ops/pallas/replay_kernel.py:248",
           "launches": k3_launches, "max_abs_err": worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms}
-    emit({"kernels": [k2, k3]})
+    # ---- 8. the per-step kernel vs its plain step and the whole-render kernel ----
+    step_err = 0.0
+    for name in tp.scene_names():
+        scene = tp.get_scene(name, W, H).to(dev)
+        ids = torch.arange(W * H * 4, device=dev)
+        rec = {"phase": "step_vs_plain", "scene": name, "spheres": scene.num_spheres}
+        whole_rec = {"phase": "step_vs_persistent", "scene": name}
+        for depth in (8, 100):
+            cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=depth)
+            got, st = wavefront.drive_items(mk.megakernel_step, scene, cfg, ids, 0, SPP)
+            ref, ref_st = wavefront.drive_items(mk.megakernel_step_reference, scene, cfg, ids, 0,
+                                                SPP)
+            whole, whole_st = mk.persistent_render(
+                mk.pack_scene(scene), mk.pack_camera(scene), (0, 0), cfg=cfg,
+                n_cells=cfg.num_cells, n_items=SPP * cfg.num_cells, ior=scene.ior)
+            g, r = got.cpu().numpy(), ref.cpu().numpy()
+            step_err = max(step_err, float(np.abs(g - r).max()))
+            rec[f"d{depth}_segments"] = [st["segments"], ref_st["segments"]]
+            rec[f"d{depth}_iters"] = st["iters"]
+            rec[f"d{depth}_exact_frac"] = float(np.mean(g == r))
+            if depth == 8:
+                t1 = tier1(g, r)
+                rec["d8_p999"], rec["d8_frac_above_1e-3"] = t1["p999"], t1["frac_above_1e-3"]
+                ok = t1["ok"]
+            else:
+                alt, _ = wavefront.drive_items(mk.megakernel_step_reference, scene,
+                                               cfg.replace(seed=1234), ids, 0, SPP)
+                alt = alt.cpu().numpy()
+                rec["d100_mean_dev"] = float(scale_aware(g, r).mean())
+                rec["d100_seed_yardstick"] = float(scale_aware(alt, r).mean())
+                ratios = g.mean(axis=1) / np.maximum(r.mean(axis=1), 1e-12)
+                rec["d100_channel_ratios"] = [float(v) for v in ratios]
+                ok = (rec["d100_mean_dev"] <= 1.5 * rec["d100_seed_yardstick"] + 1e-6
+                      and bool(np.all(np.abs(ratios - 1.0) < 0.01)))
+            rec[f"d{depth}_ok"] = ok
+            whole_rec[f"d{depth}_bitwise"] = bool(torch.equal(got, whole))
+            whole_rec[f"d{depth}_segments"] = [st["segments"], int(whole_st["segments"])]
+            whole_rec[f"d{depth}_ok"] = (whole_rec[f"d{depth}_bitwise"]
+                                         and st["segments"] == int(whole_st["segments"]))
+        emit(rec)
+        emit(whole_rec)
+        check(rec["d8_ok"] and rec["d100_ok"], f"per-step kernel vs plain step on {name}")
+        check(whole_rec["d8_ok"] and whole_rec["d100_ok"],
+              f"per-step kernel vs whole-render kernel on {name}")
+
+    # ---- 9. regenerating per-step loops ----
+    cfg = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
+    scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
+    table, cam = mk.pack_scene(scene), mk.pack_camera(scene)
+    total = cfg.num_cells
+    lanes = 65_536
+    for how, cell_start, n_cells, sample_start in (("render_cells_range", 1_000_003, 150_001, 5),
+                                                   ("past_last_cell", total - 50_000, 100_000, 6)):
+        ids = torch.arange(cell_start, cell_start + n_cells, device=dev)
+        got, st = wavefront.drive_items(mk.megakernel_step, scene, cfg, ids, sample_start, 2,
+                                        lanes)
+        ref, ref_st = wavefront.drive_items(mk.megakernel_step_reference, scene, cfg, ids,
+                                            sample_start, 2, lanes)
+        whole, whole_st = mk.persistent_render(table, cam, (cell_start, sample_start), cfg=cfg,
+                                               n_cells=n_cells, n_items=2 * n_cells,
+                                               ior=scene.ior)
+        rec = {"phase": "step_regen", "case": how, "cell_start": cell_start, "n_cells": n_cells,
+               "sample_start": sample_start, "n_items": 2 * n_cells, "lanes": st["lanes"],
+               "items_per_lane": 2 * n_cells / st["lanes"], "iters": st["iters"],
+               "segments": [st["segments"], ref_st["segments"], int(whole_st["segments"])],
+               "bitwise_vs_persistent": bool(torch.equal(got, whole)),
+               **tier1(got.cpu().numpy(), ref.cpu().numpy())}
+        step_err = max(step_err, float((got - ref).abs().max()))
+        ok = (rec["ok"] and rec["bitwise_vs_persistent"] and st["lanes"] < 2 * n_cells
+              and st["segments"] == int(whole_st["segments"]))
+        if how == "render_cells_range":
+            step_cfg = cfg.replace(integrator="pallas", pallas_persistent=False,
+                                   wavefront_lanes=lanes)
+            sums = render.render_cells_range(scene, step_cfg, ids, sample_start, 2)
+            whole_sums = render.render_cells_range(scene, cfg, ids, sample_start, 2)
+            rec["sums_bitwise"] = bool(torch.equal(sums, whole_sums))
+            ok = ok and rec["sums_bitwise"]
+        rec["ok"] = ok
+        emit(rec)
+        check(ok, f"regenerating per-step loop ({how})")
+
+    # ---- 10. the per-step slice at full size: cli bench ----
+    import contextlib
+    import io
+
+    cfg = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
+    scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
+    argv = ["bench", "--scene", "box_mirror", "--total-spp", "32", "--device", "cuda",
+            "--repeats", "3"]
+    mk.persistent_render.launches = mk.megakernel_step.launches = 0
+    rk.replay_persistent.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(argv) == 0, "cli bench failed")
+    k4_launches = mk.megakernel_step.launches
+    check(mk.persistent_render.launches == 0 and rk.replay_persistent.launches == 0,
+          "cli bench launched another kernel than the per-step kernel")
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(k4_launches >= 4 * report["iters"] > 0,
+          "cli bench did not launch the per-step kernel at least once per iteration")
+
+    # The kernel's own time: device rows of torch.profiler over one render
+    # (CUDA events around each launch would also count the card's waits for
+    # the host).
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = torch.arange(cfg.num_cells, device=dev)
+    before = mk.megakernel_step.launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        got, st = wavefront.drive_items(mk.megakernel_step, scene, cfg, ids, 0, cfg.spp)
+        end.record()
+        torch.cuda.synchronize()
+    loop_ms = start.elapsed_time(end)
+    steps = mk.megakernel_step.launches - before
+    k4_ms = k4_count = device_ms = 0.0
+    for k in prof.key_averages():
+        d = getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
+        if d > 0 and k.device_type != torch.autograd.DeviceType.CPU:
+            device_ms += d / 1e3
+            if "megakernel_step_kernel" in k.key:
+                k4_ms += d / 1e3
+                k4_count += k.count
+    check(k4_count == steps and k4_ms > 0, "the profiler did not see every per-step launch")
+    n_items = cfg.spp * cfg.num_cells
+    B = st["lanes"]
+    # Lane-state traffic of the render, from the kernel's loads and stores:
+    # every lane reads gen and alive (8 B) each step; a segment that is not
+    # its path's first reads 12 floats and 3 ints (60 B), one that is not its
+    # path's last writes them and alive (64 B); each item writes gen (4 B)
+    # when it starts and its radiance and alive (16 B) when it ends.
+    state_bytes = (8 * B * steps + 124 * (st["segments"] - n_items) + 20 * n_items)
+    table, cam = mk.pack_scene(scene), mk.pack_camera(scene)
+    kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=n_items, ior=scene.ior)
+    whole_ms, (whole, whole_st) = cuda_time_ms(lambda: mk.persistent_render(table, cam, (0, 0),
+                                                                            **kw))
+    start.record()
+    ref, ref_st = wavefront.drive_items(mk.megakernel_step_reference, scene, cfg, ids, 0,
+                                        cfg.spp)
+    end.record()
+    torch.cuda.synchronize()
+    plain_step_ms = start.elapsed_time(end)
+    bitwise = bool(torch.equal(got, whole))
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    t1 = tier1(g, r)
+    step_err = max(step_err, float(np.abs(g - r).max()))
+    rec = {"phase": "bench_path", "command": "python -m cpu_path_tracing_tpu_torch.cli "
+           + " ".join(argv), "report": report, "k4_launches": k4_launches,
+           "iters": st["iters"], "lanes": B, "segments": st["segments"],
+           "mrays_per_s": report["mrays_per_s"], "occupancy": report["occupancy"],
+           "k4_kernel_ms": k4_ms, "k4_launches_in_render": steps,
+           "k4_ms_per_step": k4_ms / steps, "profiled_loop_ms": loop_ms,
+           "profiled_device_ms": device_ms, "profiled_idle_share": 1 - device_ms / loop_ms,
+           "state_bytes": state_bytes, "state_bytes_per_step": state_bytes / steps,
+           "state_gb_per_s": state_bytes / (k4_ms / 1e3) / 1e9,
+           "dense_state_bytes_per_step": 2 * 17 * 4 * B, "k2_ms": whole_ms,
+           "k2_segments": int(whole_st["segments"]), "bitwise_vs_persistent": bitwise,
+           "plain_step_ms": plain_step_ms, "plain_segments": ref_st["segments"],
+           "max_abs_err_vs_plain": float(np.abs(g - r).max()), **t1}
+    rec["ok"] = (bitwise and t1["ok"] and st["segments"] == int(whole_st["segments"])
+                 == ref_st["segments"] == report["segments"] and report["lanes"] == 1 << 19)
+    emit(rec)
+    check(rec["ok"], "the per-step slice at full size")
+    k4 = {"name": "megakernel_step", "route": "cuda", "source": f"{PKG}/csrc/megakernel_step.cu",
+          "replaces": "cpu_path_tracing_tpu/ops/pallas/megakernel.py:518",
+          "launches": k4_launches, "max_abs_err": step_err, "ms": k4_ms,
+          "plain_ms": plain_step_ms}
+
+    # ---- 11. float64 and tent jitter on the card: the plain wavefront loop ----
+    for name, dtype, jitter in (("box_mirror", torch.float64, "uniform"),
+                                ("smallpt", torch.float64, "tent"),
+                                ("smallpt", torch.float32, "tent")):
+        cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=100, jitter=jitter)
+        cpu_scene = tp.get_scene(name, W, H, dtype=dtype)
+        scene = tp.get_scene(name, W, H, dtype=dtype).to(dev)  # .to moves a module in place
+        counts = (mk.persistent_render.launches, mk.megakernel_step.launches,
+                  rk.replay_persistent.launches)
+        route = render.resolve_integrator(scene, cfg)
+        ids = torch.arange(cfg.num_cells)
+        got, st = render.render_cells_range(scene, cfg, ids.to(dev), 0, SPP, with_stats=True)
+        torch.cuda.synchronize()
+        launched = (mk.persistent_render.launches, mk.megakernel_step.launches,
+                    rk.replay_persistent.launches) != counts
+        ref = render.render_cells_range(cpu_scene, cfg, ids, 0, SPP)
+        g, r = got.cpu().numpy(), ref.numpy()
+        rec = {"phase": "wavefront_route", "scene": name, "dtype": str(dtype), "jitter": jitter,
+               "route": route, "kernel_launches": launched, "segments": st["segments"]}
+        if dtype == torch.float64:
+            rec["max_rel_dev"] = float((np.abs(g - r) / np.maximum(np.abs(r), 1e-300)).max())
+            close = bool(np.allclose(g, r, rtol=1e-9, atol=1e-12))
+        else:
+            t1 = tier1(g.T, r.T)
+            rec["p999"], close = t1["p999"], t1["ok"]
+        rec["ok"] = route == "wavefront" and not launched and close
+        emit(rec)
+        check(rec["ok"], f"the wavefront route on the card ({name}, {dtype}, {jitter})")
+
+    emit({"kernels": [k2, k3, k4]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,22 @@
-"""Command-line interface: the ``render`` and ``invert`` subcommands.
+"""Command-line interface: the ``render``, ``invert`` and ``bench`` subcommands.
 
-Counterpart of ``cpu_path_tracing_tpu/cli.py``'s ``render`` and ``invert``
-without the mesh, tile, checkpoint and multi-host options:
+Counterpart of ``cpu_path_tracing_tpu/cli.py``'s ``render``, ``invert`` and
+``bench`` without the mesh, tile, checkpoint and multi-host options:
 
     python -m cpu_path_tracing_tpu_torch.cli render --scene box_mirror \\
         --width 1024 --height 768 --total-spp 32 --device cuda -o disco.png
     python -m cpu_path_tracing_tpu_torch.cli invert --scene box \\
         --width 400 --height 400 --spp 16 --steps 100 --device cuda
+    python -m cpu_path_tracing_tpu_torch.cli bench --scene box_mirror \\
+        --total-spp 32 --device cuda
+
+``--integrator`` picks the route (``render.resolve_integrator``): 'pallas'
+the CUDA kernels, 'wavefront' the plain wavefront loop, 'auto' the kernels
+for a float32, uniform-jitter scene on the card.  ``bench`` times the
+per-step path, as the JAX ``cmd_bench`` does: with 'auto' on the card the
+per-step kernel, elsewhere ``render_wavefront``; one warm-up run, then the
+best of ``--repeats`` (CUDA-event time on the card), and one
+``RenderReport`` JSON line on stdout.
 
 ``--total-spp N`` keeps the reference's meaning (N / subpixels^2 samples
 per subpixel cell, ``src/main.cpp:203-206``).  ``invert`` renders the
@@ -39,6 +49,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-depth", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cpu", help="torch device, e.g. cpu or cuda")
+    p.add_argument("--integrator", choices=("auto", "wavefront", "pallas"), default="auto")
+    p.add_argument("--jitter", choices=("uniform", "tent"), default="uniform",
+                   help="subpixel filter: uniform (reference binary) or tent (sandbox "
+                        "smallpt; the plain paths only)")
+    p.add_argument("--lanes", type=int, default=None,
+                   help="lane-pool width of the per-step paths (default 1<<19)")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -55,6 +71,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--perturb", type=float, default=0.05)
     p.add_argument("--cell-chunk", type=int, default=1 << 17,
                    help="cells per gradient-accumulation chunk")
+    p = sub.add_parser("bench", help="time the per-step wavefront render")
+    _add_common(p)
+    p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--suite", action="store_true", help="not ported (ROADMAP.md Queue 1 item 9)")
+    p.add_argument("--scaling", action="store_true",
+                   help="not ported (ROADMAP.md Queue 1 item 11)")
+    p.add_argument("--ring", type=int, default=None,
+                   help="not ported: the port has no result ring")
     return ap
 
 
@@ -64,8 +88,10 @@ def _config(args) -> RenderConfig:
     if spp is None:
         total = args.total_spp if args.total_spp is not None else 4
         spp = max(1, total // (ns * ns))
+    lanes = {} if args.lanes is None else {"wavefront_lanes": args.lanes}
     return RenderConfig(width=args.width, height=args.height, spp=spp,
-                        max_depth=args.max_depth, seed=args.seed)
+                        max_depth=args.max_depth, seed=args.seed, integrator=args.integrator,
+                        jitter=args.jitter, **lanes)
 
 
 def cmd_render(args) -> int:
@@ -109,9 +135,52 @@ def cmd_invert(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    if args.suite or args.scaling or args.ring is not None:
+        raise SystemExit("bench --suite and --scaling are not ported yet (ROADMAP.md Queue 1 "
+                         "items 9 and 11), nor --ring: the port has no result ring")
+    from .ops.wavefront import render_wavefront, render_wavefront_per_step
+    from .render import resolve_integrator
+    from .utils.metrics import RenderReport
+
+    cfg = _config(args)
+    scene = get_scene(args.scene, cfg.width, cfg.height).to(args.device)
+    render_span = (render_wavefront_per_step if resolve_integrator(scene, cfg) == "pallas"
+                   else render_wavefront)
+    ids = torch.arange(cfg.num_cells, device=scene.device)
+
+    def run():
+        return render_span(scene, cfg, ids, 0, cfg.spp, with_stats=True)
+
+    _, stats = run()  # warm-up; the stats are deterministic and read once, untimed
+    on_cuda = scene.device.type == "cuda"
+    best = None
+    for _ in range(args.repeats):
+        if on_cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            run()
+            dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    rep = RenderReport(
+        scene=args.scene, width=cfg.width, height=cfg.height, total_spp=cfg.total_spp,
+        seconds=best, segments=int(stats["segments"]), camera_rays=cfg.num_cells * cfg.spp,
+        iters=int(stats["iters"]), lanes=int(stats["lanes"]),
+        device=torch.cuda.get_device_name(scene.device) if on_cuda else str(scene.device))
+    print(rep.to_json(), flush=True)
+    print(rep.summary(), file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    return {"render": cmd_render, "invert": cmd_invert}[args.cmd](args)
+    return {"render": cmd_render, "invert": cmd_invert, "bench": cmd_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":

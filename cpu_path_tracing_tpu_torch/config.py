@@ -5,10 +5,13 @@ fields with the same defaults (1024x768, 2x2 subpixels, 1 sample per
 subpixel, max depth 100, Russian roulette after depth 4 — the reference
 binary's ``src/main.cpp:106,202-206`` and ``src/constants.hpp:7-10``).
 
-The TPU schedule knobs of the JAX config (``wavefront_lanes``,
-``wavefront_ring``, ``pallas_*``) are gone: the CUDA kernel sizes its own
-grid from the card's occupancy (``csrc/megakernel.cu``), and the plain
-PyTorch path needs no schedule.
+Of the JAX config's schedule knobs the port keeps ``integrator``,
+``wavefront_lanes`` (the lane pool of the per-step paths) and
+``pallas_persistent`` (the whole-render kernel or the per-step kernel).
+``wavefront_ring``, ``pallas_rows`` and ``pallas_unroll`` are gone: the
+port has no result ring (finished paths write their radiance straight to
+the output), and the whole-render kernel sizes its own grid from the
+card's occupancy (``csrc/megakernel.cu``).
 """
 
 from __future__ import annotations
@@ -39,12 +42,26 @@ class RenderConfig:
     # the reverse-mode 'scan' loop comes with the geometry backward (ROADMAP.md
     # Queue 1 item 8).
     loop: str = "while"
-    # 'auto' = the CUDA kernel for a float32 scene on a CUDA device, the
-    # plain PyTorch version for a scene on the CPU (render.resolve_integrator).
+    # 'pallas' = the hand-written CUDA kernels (the JAX name, so configs and
+    # CLI flags carry over; on CPU tensors their wrappers run the plain
+    # versions); 'wavefront' = the plain PyTorch wavefront loop
+    # (ops/wavefront.render_wavefront), any dtype and jitter; 'auto' =
+    # 'pallas' for a float32, uniform-jitter scene on a CUDA device, else
+    # 'wavefront', and on the CPU the plain version of the whole-render
+    # kernel (render.resolve_integrator).  'batch' is not ported (ROADMAP.md
+    # Queue 1 item 8).
     integrator: str = "auto"
+    # Lane-pool width of the per-step paths (render_wavefront and the
+    # per-step kernel): items are striped over the pool, item = gen*B + lane.
+    wavefront_lanes: int = 1 << 19
     # Subpixel jitter: 'uniform' (src/main.cpp:186-190) or 'tent' (the
-    # sandbox smallpt filter, sandbox/main.cpp:253-256; plain path only).
+    # sandbox smallpt filter, sandbox/main.cpp:253-256; the plain paths
+    # only: the kernels' in-kernel camera has uniform jitter).
     jitter: str = "uniform"
+    # integrator='pallas': True = the whole render in one kernel launch
+    # (csrc/megakernel.cu); False = one launch of the per-step kernel per
+    # wavefront iteration (csrc/megakernel_step.cu), the path of `cli bench`.
+    pallas_persistent: bool = True
 
     @property
     def total_spp(self) -> int:

@@ -1,4 +1,4 @@
-"""The forward render kernel: wrapper, plain version and host format.
+"""The forward render kernels: wrappers, plain versions and host format.
 
 ``persistent_render`` replaces the TPU kernel
 ``cpu_path_tracing_tpu/ops/pallas/megakernel.py::persistent_render`` (the
@@ -25,6 +25,18 @@ chunk: its ``lanes`` is the chunk width and ``iters`` the bounce steps run.
 
 ``pack_scene`` / ``pack_camera`` are the host-to-kernel format of the JAX
 package, verbatim: an [N,17] sphere table and a [20] camera vector.
+
+``megakernel_step`` replaces the TPU kernel
+``cpu_path_tracing_tpu/ops/pallas/megakernel.py::megakernel_step`` (one
+wavefront iteration per ``pallas_call``) with ``csrc/megakernel_step.cu``:
+one launch advances every lane of a pool of B lanes by one bounce, the
+lane state (``LaneState``) living in device memory between launches.  It
+is bound by that state traffic, ~17 words read and written per lane per
+step, where the whole-render kernel keeps the path in registers.  The
+design keeps the traffic to what a lane needs: an idle lane with nothing
+left to start reads two words and writes none.  Its plain version,
+``megakernel_step_reference``, is also the step of the plain wavefront loop
+(``ops/wavefront.render_wavefront``) in any dtype and jitter.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ from ... import _build
 from ...config import RenderConfig
 from ...models.camera import Camera, build_camera, get_rays
 from .. import rng as rng_ops
-from ..integrator import radiance
+from ..integrator import RayState, bounce_step, radiance
 
 TABLE_COLS = 17
 CAM_LEN = 20
@@ -108,16 +120,18 @@ def _check(table, cam, dyn):
 
 
 def check_kernel_config(cfg: RenderConfig, dtype: torch.dtype) -> None:
-    """Raise ValueError for a render the CUDA kernel does not do.  It is
-    float32 with uniform jitter; a CUDA render in float64 or with tent
-    jitter raises rather than falling back to the plain path."""
-    todo = "(ROADMAP.md Queue 1 item 6: float64 and tent jitter on CUDA)"
+    """Raise ValueError for a render the CUDA kernels do not do.  They are
+    float32 with uniform jitter, as the JAX package's Pallas kernels are;
+    ``integrator='wavefront'`` (what 'auto' picks for such a scene) renders
+    the rest with the plain wavefront loop.  Nothing falls back after a
+    kernel is asked for."""
+    todo = ("integrator='wavefront' renders it forward; its replay backward on CUDA "
+            "is ROADMAP.md Queue 1 item 7")
     if dtype != torch.float32:
-        raise ValueError(f"a {dtype} render on CUDA is not ported yet; the CUDA kernel "
-                         f"is float32 {todo}")
+        raise ValueError(f"the CUDA kernels are float32, got {dtype}: {todo}")
     if cfg.jitter != "uniform":
-        raise ValueError(f"jitter={cfg.jitter!r} on CUDA is not ported yet; the CUDA "
-                         f"kernel has uniform jitter {todo}")
+        raise ValueError(f"jitter={cfg.jitter!r} is not in the CUDA kernels' camera "
+                         f"(uniform jitter): {todo}")
 
 
 def item_rays(cfg: RenderConfig, camera: Camera, dyn, n_cells: int, i0: int, i1: int,
@@ -125,10 +139,15 @@ def item_rays(cfg: RenderConfig, camera: Camera, dyn, n_cells: int, i0: int, i1:
     """The regeneration of items [i0, i1) of a launch, as the kernels do it:
     item = sample * n_cells + c, cell = min(cell_start + c, cells - 1).
     Returns (c [B], item keys (a0, a1), origins [B,3], directions [B,3])."""
+    item = torch.arange(i0, i1, dtype=torch.int64, device=device)
+    return rays_for_items(cfg, camera, dyn, n_cells, item, dtype)
+
+
+def rays_for_items(cfg: RenderConfig, camera: Camera, dyn, n_cells: int, item, dtype):
+    """``item_rays`` for an int64 tensor of item indices."""
     from ...render import screen_coords  # render imports this module
 
     cell_start, sample_start = (int(v) for v in dyn)
-    item = torch.arange(i0, i1, dtype=torch.int64, device=device)
     c_idx = item % n_cells
     cell = torch.clamp(cell_start + c_idx, max=cfg.num_cells - 1)
     a0, a1 = rng_ops.item_keys(cfg.seed, cell, sample_start + item // n_cells)
@@ -243,3 +262,179 @@ def persistent_render(table, cam, dyn, *, cfg: RenderConfig, n_cells: int, n_ite
 
 
 persistent_render.launches = 0
+
+
+# ---- the per-step kernel -------------------------------------------------
+
+# Lane state rows: the fields of pt::Path (csrc/step_math.cuh), then the
+# lane's generation (its item is gen * lanes + lane) and alive flag.  k0
+# and k1 are uint32 item-key words held as int32 bit patterns.
+LANE_F = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz", "emx", "emy", "emz")
+LANE_I = ("depth", "k0", "k1", "gen", "alive")
+_DEPTH, _K0, _K1, _GEN, _ALIVE = range(len(LANE_I))
+_WORD = 0xFFFFFFFF
+
+
+class LaneState(NamedTuple):
+    """SoA lane pool of the per-step kernel, one row per field, updated in
+    place by each step: ``f`` [12, B] in the render's dtype (float32 for the
+    kernel), ``i`` [5, B] int32."""
+
+    f: torch.Tensor
+    i: torch.Tensor
+
+
+def init_lane_state(lanes: int, device, dtype=torch.float32) -> LaneState:
+    """A pool of idle lanes that have processed no item (gen = -1)."""
+    f = torch.zeros((len(LANE_F), lanes), dtype=dtype, device=device)
+    i = torch.zeros((len(LANE_I), lanes), dtype=torch.int32, device=device)
+    i[_GEN] = -1
+    return LaneState(f, i)
+
+
+def lane_state_from_arrays(d) -> LaneState:
+    """The JAX package's per-step state (its ``STATE_NAMES`` dict of
+    [B/128, 128] arrays, as NumPy) in the port's layout, on the CPU.  The
+    JAX state's result rows (``rsx`` ...) have no counterpart: the port
+    writes a finished path's radiance straight to the output."""
+    f = np.stack([np.asarray(d[n]).reshape(-1) for n in LANE_F])
+    i = np.stack([np.asarray(d[n]).reshape(-1).view(np.int32) if n in ("k0", "k1")
+                  else np.asarray(d[n], np.int32).reshape(-1) for n in LANE_I])
+    return LaneState(torch.from_numpy(np.ascontiguousarray(f)),
+                     torch.from_numpy(np.ascontiguousarray(i)))
+
+
+def _int32_bits(words: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of uint32 values -> int32 tensor of the same bits."""
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
+
+
+def _check_step(state: LaneState, table, *, n_cells: int, n_items: int, lanes: int, out,
+                seg, seg_slot: int) -> None:
+    if n_cells < 1 or n_items < 1 or lanes < 1:
+        raise ValueError(f"bad item range: n_cells={n_cells}, n_items={n_items}, "
+                         f"lanes={lanes}")
+    if (tuple(state.f.shape) != (len(LANE_F), lanes)
+            or tuple(state.i.shape) != (len(LANE_I), lanes)
+            or state.i.dtype != torch.int32 or state.f.dtype != table.dtype):
+        raise ValueError(f"state must be f [{len(LANE_F)}, {lanes}] in the table's dtype and "
+                         f"i [{len(LANE_I)}, {lanes}] int32 (init_lane_state)")
+    if tuple(out.shape) != (3, n_items) or out.dtype != table.dtype:
+        raise ValueError(f"out must be [3, {n_items}] in the table's dtype")
+    if seg.dim() != 1 or seg.dtype != torch.int64 or not 0 <= seg_slot < seg.shape[0]:
+        raise ValueError(f"seg must be a 1-d int64 tensor holding slot {seg_slot}")
+    if any(t.device != table.device for t in (state.f, state.i, out, seg)):
+        raise ValueError("state, out and seg must be on the table's device")
+
+
+def megakernel_step_reference(state: LaneState, table, cam, dyn, *, cfg: RenderConfig,
+                              n_cells: int, n_items: int, lanes: int, out, seg,
+                              seg_slot: int, ior: float = 2.0, hist=None) -> None:
+    """Plain PyTorch version of ``megakernel_step``: the same arguments and
+    in-place updates, in the table's dtype (float32 or float64) and with
+    either jitter.  One wavefront iteration of every lane:
+
+    1. regeneration (``make_step_math``, ``megakernel.py:171-236``, without
+       the ring's ``g_flush + K`` gate): an idle lane with ``gen + 1 <
+       n_gens`` advances ``gen`` and, when ``item = gen * lanes + lane <
+       n_items``, starts that item's camera path;
+    2. one ``ops/integrator.bounce_step`` of every live lane with its own
+       ``rng.bounce_uniforms(k0, k1, depth)``, then the depth limit;
+    3. retirement: a finished path's radiance goes to ``out[:, item]``.
+
+    ``seg[seg_slot]`` gains the lanes alive after regeneration (the step's
+    path segments).  With ``hist`` ([max_depth] int64), ``hist[d - 1]``
+    gains the paths that finished after d segments."""
+    _check(table, cam, dyn)
+    _check_step(state, table, n_cells=n_cells, n_items=n_items, lanes=lanes, out=out,
+                seg=seg, seg_slot=seg_slot)
+    spheres, camera = _unpack(table, cam, ior)
+    f, iv = state.f, state.i
+    n_gens = -(-n_items // lanes)
+    want = iv[_GEN].long() + 1
+    can = (iv[_ALIVE] == 0) & (want < n_gens)
+    iv[_GEN] = torch.where(can, want, iv[_GEN].long()).to(torch.int32)
+    item = want * lanes + torch.arange(lanes, device=table.device)
+    new = torch.nonzero(can & (item < n_items)).squeeze(1)
+    if new.numel():
+        _, (a0, a1), o, d = rays_for_items(cfg, camera, dyn, n_cells, item[new], table.dtype)
+        f[:, new] = torch.cat([o.T, d.T, torch.ones_like(o.T), torch.zeros_like(o.T)])
+        iv[_DEPTH, new] = 0
+        iv[_K0, new], iv[_K1, new] = _int32_bits(a0), _int32_bits(a1)
+        iv[_ALIVE, new] = 1
+    lane = torch.nonzero(iv[_ALIVE] != 0).squeeze(1)
+    seg[seg_slot] += lane.numel()
+    if not lane.numel():
+        return
+    fl = f[:, lane]
+    ray = RayState(origin=fl[0:3].T, direction=fl[3:6].T, throughput=fl[6:9].T,
+                   emission=fl[9:12].T, alive=torch.ones_like(lane, dtype=torch.bool),
+                   result=torch.zeros_like(fl[0:3].T))
+    depth = iv[_DEPTH, lane].long()
+    u = rng_ops.bounce_uniforms(iv[_K0, lane].long() & _WORD, iv[_K1, lane].long() & _WORD,
+                                depth).to(table.dtype)
+    ray = bounce_step(spheres, ray, u, depth, rr_depth=cfg.rr_depth, epsilon=cfg.epsilon,
+                      inf=cfg.inf)
+    depth = depth + 1
+    exhausted = ray.alive & (depth >= cfg.max_depth)  # src/main.cpp:157
+    result = torch.where(exhausted[:, None], ray.emission, ray.result)
+    alive = ray.alive & ~exhausted
+    f[:, lane] = torch.cat([ray.origin.T, ray.direction.T, ray.throughput.T, ray.emission.T])
+    iv[_DEPTH, lane] = depth.to(torch.int32)
+    iv[_ALIVE, lane] = alive.to(torch.int32)
+    done = torch.nonzero(~alive).squeeze(1)
+    out[:, iv[_GEN, lane[done]].long() * lanes + lane[done]] = result[done].T
+    if hist is not None:
+        hist += torch.bincount(depth[done] - 1, minlength=cfg.max_depth)[:cfg.max_depth]
+
+
+def megakernel_step(state: LaneState, table, cam, dyn, *, cfg: RenderConfig, n_cells: int,
+                    n_items: int, lanes: int, out, seg, seg_slot: int,
+                    ior: float = 2.0) -> None:
+    """One wavefront iteration of a pool of ``lanes`` lanes, in place.
+
+    Args:
+      state: ``LaneState`` (``init_lane_state`` before the first step);
+      table: [N,17] (pack_scene); cam: [20] (pack_camera); dyn:
+        (cell_start, sample_start) as ints;
+      out: [3, n_items], where a path that finishes writes its radiance at
+        its item, item = sample * n_cells + c;
+      seg: int64 [S]; ``seg[seg_slot]`` gains the step's path segments.
+
+    On CUDA tensors this launches the per-step kernel (float32,
+    contiguous, N <= MAX_SPHERES, uniform jitter) or raises.  On CPU
+    tensors it runs the plain version.  ``megakernel_step.launches`` counts
+    the launches.
+    """
+    _check(table, cam, dyn)
+    if table.device.type == "cpu":
+        megakernel_step_reference(state, table, cam, dyn, cfg=cfg, n_cells=n_cells,
+                                  n_items=n_items, lanes=lanes, out=out, seg=seg,
+                                  seg_slot=seg_slot, ior=ior)
+        return
+    if table.device.type != "cuda":
+        raise ValueError(f"megakernel_step runs on CUDA or the CPU, not {table.device}")
+    check_kernel_config(cfg, table.dtype)
+    _check_step(state, table, n_cells=n_cells, n_items=n_items, lanes=lanes, out=out,
+                seg=seg, seg_slot=seg_slot)
+    if not all(t.is_contiguous() for t in (table, cam, state.f, state.i, out, seg)):
+        raise ValueError("table, cam, state, out and seg must be contiguous")
+    n = table.shape[0]
+    if not 1 <= n <= MAX_SPHERES:
+        raise ValueError(f"the CUDA kernel holds 1..{MAX_SPHERES} spheres in shared "
+                         f"memory ({SMEM_BUDGET} bytes), got {n}")
+
+    lib = _build.load()
+    params = launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pt_megakernel_step(table.data_ptr(), cam.data_ptr(), state.f.data_ptr(),
+                                     state.i.data_ptr(), out.data_ptr(), seg.data_ptr(),
+                                     ctypes.addressof(params), lanes, seg_slot, stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel_step launch failed: "
+                           f"{lib.pt_error_string(err).decode()} ({err})")
+    megakernel_step.launches += 1
+
+
+megakernel_step.launches = 0

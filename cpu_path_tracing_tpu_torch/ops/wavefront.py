@@ -1,19 +1,71 @@
-"""Whole-render launch over a contiguous cell span.
+"""Wavefront renders over a contiguous cell span.
 
-Counterpart of ``render_wavefront_pallas_persistent``
-(``cpu_path_tracing_tpu/ops/wavefront.py:374-453``): pack the scene, render
-every (cell, sample) item of the span in one call of the kernel wrapper
-(``ops/kernels/megakernel.py``; the plain PyTorch version when the scene is
-on the CPU), then sum each cell's samples in sample order.
+Three entry points, counterparts of ``cpu_path_tracing_tpu/ops/wavefront.py``:
 
-Per-item radiance depends only on (seed, cell, sample) through the item
-keys (ops/rng.py), so results are independent of the kernel's schedule.
+* ``render_wavefront_persistent`` (``render_wavefront_pallas_persistent``,
+  ``:374-453``): every (cell, sample) item of the span in one call of the
+  whole-render kernel wrapper (the plain version when the scene is on the
+  CPU).
+* ``render_wavefront`` (the XLA ``render_wavefront``, ``:69-249``): a host
+  loop of the plain step, ``megakernel_step_reference``, in the scene's
+  dtype on any device, float64 and tent jitter included.
+* ``render_wavefront_per_step`` (``render_wavefront_pallas``,
+  ``:252-371``): the same loop with one launch of the per-step kernel per
+  iteration (the plain step when the scene is on the CPU).
+
+The two loops share one host loop: a pool of ``B = min(lanes or
+cfg.wavefront_lanes, n_items)`` lanes, item = gen * B + lane, cell =
+min(cell_start + item % n_cells, cells - 1).  The JAX loops retire results
+into a K-slot ring flushed at a watermark, because TPU scatter is slow
+(``:19-27``); here a finished path writes ``out[:, item]`` directly, so no
+lane ever stalls and the loop ends at the first step in which no lane was
+alive after regeneration.  So ``iters`` (steps with live lanes) differs
+from the JAX loops' count, which includes ring stalls and flushes; per-item
+radiance depends only on (seed, cell, sample) through the item keys
+(ops/rng.py), so results and ``segments`` do not depend on the schedule.
+
+Every path sums each cell's samples in sample order, the association order
+of the JAX package's per-cell reduction (``:237-243``).
 """
 
 from __future__ import annotations
 
+import functools
+
+import torch
+
 from ..config import RenderConfig
-from .kernels.megakernel import pack_camera, pack_scene, persistent_render
+from .kernels.megakernel import (
+    init_lane_state,
+    megakernel_step,
+    megakernel_step_reference,
+    pack_camera,
+    pack_scene,
+    persistent_render,
+)
+
+# Steps launched between two reads of the live count: the loop syncs with
+# the device once per batch, and a step on a drained pool adds 0.
+STEP_BATCH = 16
+
+
+def _span(scene, cell_ids, num_samples: int):
+    from ..render import check_contiguous_cells  # render imports this module
+
+    check_contiguous_cells(cell_ids)
+    n_cells = int(cell_ids.shape[0])
+    cell_start = int(cell_ids[0]) if n_cells else 0
+    return n_cells, cell_start, n_cells * num_samples
+
+
+def _cell_sums(out, num_samples: int, n_cells: int):
+    """Per-item radiance [3, num_samples * n_cells] -> per-cell sums
+    [n_cells, 3], adding samples in sequence."""
+    per_sample = out.view(3, num_samples, n_cells)
+    sums = per_sample[:, 0].clone()
+    for i in range(1, num_samples):
+        sums += per_sample[:, i]
+    return sums.T.contiguous()
 
 
 def render_wavefront_persistent(scene, cfg: RenderConfig, cell_ids, sample_start: int,
@@ -22,24 +74,87 @@ def render_wavefront_persistent(scene, cfg: RenderConfig, cell_ids, sample_start
     for each cell of ``cell_ids``, a contiguous ascending span.  Returns
     [n_cells, 3] in the scene's dtype, plus ``{segments, iters, lanes}``
     when asked (ops/kernels/megakernel.py defines them)."""
-    from ..render import check_contiguous_cells  # render imports this module
-
-    check_contiguous_cells(cell_ids)
-    n_cells = int(cell_ids.shape[0])
-    cell_start = int(cell_ids[0]) if n_cells else 0
+    n_cells, cell_start, n_items = _span(scene, cell_ids, num_samples)
     dtype = scene.dtype
     table = pack_scene(scene, dtype)
     cam = pack_camera(scene, dtype)
-    n_items = n_cells * num_samples
     out, stats = persistent_render(table, cam, (cell_start, sample_start), cfg=cfg,
                                    n_cells=n_cells, n_items=n_items, ior=scene.ior)
-    # Sample-major, in sequence: the association order of the JAX package's
-    # per-cell reduction (it is plain XLA outside the TPU kernel, too).
-    per_sample = out.view(3, num_samples, n_cells)
-    sums = per_sample[:, 0].clone()
-    for i in range(1, num_samples):
-        sums += per_sample[:, i]
-    sums = sums.T.contiguous()
+    sums = _cell_sums(out, num_samples, n_cells)
+    if with_stats:
+        return sums, stats
+    return sums
+
+
+def drive_items(step, scene, cfg: RenderConfig, cell_ids, sample_start: int,
+                num_samples: int, lanes: int | None = None):
+    """The per-step loop: ``step`` (``megakernel_step`` or its plain
+    version) over the span until the pool drains.  Returns per-item
+    radiance (out [3, n_items], item = sample * n_cells + c) and the stats
+    ``{segments, iters, lanes}``."""
+    n_cells, cell_start, n_items = _span(scene, cell_ids, num_samples)
+    dtype, device = scene.dtype, scene.device
+    B = max(1, min(lanes or cfg.wavefront_lanes, n_items))
+    out = torch.empty((3, n_items), dtype=dtype, device=device)
+    if not n_items:
+        return out, {"segments": 0, "iters": 0, "lanes": B}
+    n_gens = -(-n_items // B)
+    # Each lane runs at most n_gens paths of at most max_depth bounces, and
+    # starts its next path in the step that ends the last: one more step
+    # finds the pool drained.
+    cap = n_gens * cfg.max_depth + 1
+    seg = torch.zeros(cap, dtype=torch.int64, device=device)
+    table, cam = pack_scene(scene, dtype), pack_camera(scene, dtype)
+    state = init_lane_state(B, device, dtype)
+    kw = dict(cfg=cfg, n_cells=n_cells, n_items=n_items, lanes=B, out=out, seg=seg,
+              ior=scene.ior)
+    done = 0
+    while True:
+        stop = min(done + STEP_BATCH, cap)
+        for slot in range(done, stop):
+            step(state, table, cam, (cell_start, sample_start), seg_slot=slot, **kw)
+        done = stop
+        if int(seg[done - 1]) == 0:  # the one sync of the batch
+            break
+        if done == cap:
+            raise RuntimeError(f"the wavefront loop did not drain in {cap} steps "
+                               f"(n_gens={n_gens}, max_depth={cfg.max_depth})")
+    seg = seg[:done].cpu()
+    return out, {"segments": int(seg.sum()), "iters": int((seg > 0).sum()), "lanes": B}
+
+
+def render_wavefront(scene, cfg: RenderConfig, cell_ids, sample_start: int,
+                     num_samples: int, *, lanes: int | None = None, with_stats: bool = False,
+                     depth_hist: bool = False):
+    """SUM of radiance over the sample range for each cell of a contiguous
+    span ([n_cells, 3], the scene's dtype), by the plain step on the
+    scene's device.  Stats: ``segments`` (path segments, int), ``iters``
+    (steps with live lanes; not the JAX loop's count, see the module
+    docstring) and ``lanes`` (B), so ``segments / (iters * lanes)`` is the
+    pool's occupancy.  With ``depth_hist`` also ``depth_hist``: [max_depth]
+    int64, the items retired after exactly d+1 segments."""
+    hist = None
+    if depth_hist:
+        hist = torch.zeros(cfg.max_depth, dtype=torch.int64, device=scene.device)
+    step = functools.partial(megakernel_step_reference, hist=hist)
+    out, stats = drive_items(step, scene, cfg, cell_ids, sample_start, num_samples, lanes)
+    sums = _cell_sums(out, num_samples, int(cell_ids.shape[0]))
+    if not with_stats:
+        return sums
+    if depth_hist:
+        stats["depth_hist"] = hist
+    return sums, stats
+
+
+def render_wavefront_per_step(scene, cfg: RenderConfig, cell_ids, sample_start: int,
+                              num_samples: int, *, lanes: int | None = None,
+                              with_stats: bool = False):
+    """``render_wavefront`` with one ``megakernel_step`` per iteration: on
+    a CUDA scene the per-step kernel (float32, uniform jitter, or
+    ValueError), on a CPU scene its plain version."""
+    out, stats = drive_items(megakernel_step, scene, cfg, cell_ids, sample_start, num_samples,
+                        lanes)
+    sums = _cell_sums(out, num_samples, int(cell_ids.shape[0]))
     if with_stats:
         return sums, stats
     return sums

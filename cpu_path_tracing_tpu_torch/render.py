@@ -8,7 +8,9 @@ for a range of samples (``ops/wavefront.py``); the image is a pure function
 of (scene, config, seed), independent of chunking.
 
 The renderer works where the scene lives: ``scene.to("cuda")`` renders
-with the CUDA kernel, a scene on the CPU with the plain PyTorch version.
+with the CUDA kernels (float32, uniform jitter) or the plain wavefront
+loop on the card (float64, tent jitter), a scene on the CPU with the plain
+PyTorch versions (``resolve_integrator``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ import torch
 from .config import RenderConfig
 from .models.camera import build_camera, get_rays
 from .ops.kernels.megakernel import check_kernel_config
-from .ops.wavefront import render_wavefront_persistent
+from .ops.wavefront import (
+    render_wavefront,
+    render_wavefront_per_step,
+    render_wavefront_persistent,
+)
 
 
 def decode_cells(cell_ids, cfg: RenderConfig):
@@ -72,21 +78,36 @@ def _on_cuda(scene) -> bool:
 
 
 def resolve_integrator(scene, cfg: RenderConfig) -> str:
-    """'cuda' (the kernel) for a float32, uniform-jitter scene on a CUDA
-    device; 'plain' (the PyTorch version) for a scene on the CPU.  Raises
-    for what is not ported, before anything is launched: a CUDA scene in
-    float64 or with tent jitter (the kernel module's ``check_kernel_config``
-    owns that rule), another integrator or loop.  The route itself follows
-    the device of the tensors, which the kernel wrapper reads."""
-    if cfg.integrator != "auto":
-        raise ValueError(f"integrator={cfg.integrator!r}: only 'auto' is ported")
+    """The route of a render, picked from the config before anything
+    launches (JAX ``render.py:107-119``):
+
+    * 'pallas', the CUDA kernels: ``cfg.integrator='pallas'``, or 'auto' on
+      a CUDA scene in float32 with uniform jitter.  It raises ValueError
+      for float64 or tent jitter (``check_kernel_config``), as the JAX
+      package does, instead of falling back.
+    * 'wavefront', the plain wavefront loop: ``cfg.integrator='wavefront'``,
+      or 'auto' on a CUDA scene the kernels do not render.
+    * 'plain': 'auto' on the CPU, the plain version of the whole-render
+      kernel in the scene's dtype and jitter.
+
+    'batch' and ``loop='scan'`` raise (ROADMAP.md Queue 1 item 8)."""
     if cfg.loop != "while":
         raise ValueError(f"loop={cfg.loop!r}: only 'while' is ported (ROADMAP.md "
                          "Queue 1 item 8 brings the scan loop)")
-    if not _on_cuda(scene):
-        return "plain"
-    check_kernel_config(cfg, scene.dtype)
-    return "cuda"
+    integ = cfg.integrator
+    if integ == "batch":
+        raise ValueError("integrator='batch' is not ported (ROADMAP.md Queue 1 item 8: it "
+                         "comes with the scan loop)")
+    if integ not in ("auto", "wavefront", "pallas"):
+        raise ValueError(f"unknown integrator {integ!r}: 'auto', 'wavefront' or 'pallas'")
+    if integ == "auto":
+        if not _on_cuda(scene):
+            return "plain"
+        kernel = scene.dtype == torch.float32 and cfg.jitter == "uniform"
+        integ = "pallas" if kernel else "wavefront"
+    if integ == "pallas":
+        check_kernel_config(cfg, scene.dtype)
+    return integ
 
 
 def render_cells_range(scene, cfg: RenderConfig, cell_ids, sample_start: int,
@@ -94,10 +115,18 @@ def render_cells_range(scene, cfg: RenderConfig, cell_ids, sample_start: int,
     """SUM of radiance over samples [sample_start, sample_start+num_samples)
     for a contiguous cell span: [B,3], unclamped, unnormalized (plus the
     launch's stats with ``with_stats``).  Any partition of the sample range
-    sums to the same total up to float association."""
-    resolve_integrator(scene, cfg)  # validate; the wrapper dispatches on the device
-    return render_wavefront_persistent(scene, cfg, cell_ids, sample_start, num_samples,
-                                       with_stats=with_stats)
+    sums to the same total up to float association.  Dispatch as JAX
+    ``render.py:135-150``: 'wavefront' -> ``render_wavefront``; 'pallas'
+    -> the whole-render kernel, or with ``cfg.pallas_persistent=False`` the
+    per-step kernel; 'plain' -> the whole-render kernel's wrapper, which
+    runs its plain version for a scene on the CPU."""
+    integ = resolve_integrator(scene, cfg)
+    args = (scene, cfg, cell_ids, sample_start, num_samples)
+    if integ == "wavefront":
+        return render_wavefront(*args, with_stats=with_stats)
+    if integ == "pallas" and not cfg.pallas_persistent:
+        return render_wavefront_per_step(*args, with_stats=with_stats)
+    return render_wavefront_persistent(*args, with_stats=with_stats)
 
 
 def render_cells(scene, cfg: RenderConfig, cell_ids) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Image output."""
+"""Image output and the render report."""

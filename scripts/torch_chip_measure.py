@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 scripts/torch_chip_measure.py [--part build|fmad|profile|scenes|train|all]
+    python3 scripts/torch_chip_measure.py [--part build|fmad|profile|scenes|train|step|all]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
@@ -25,6 +25,12 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   100, albedo and emission, 131,072-cell chunks): the target's render time,
   a cProfile of the first step (the top functions by cumulative time), the
   second step's time, then ``torch.profiler`` over 3 steps as in profile.
+- step: the per-step render of the main path (``cli bench``'s loop,
+  ``ops/wavefront.drive_items`` with the per-step kernel): CUDA-event ms
+  (1 warm-up, 3 runs) with the loop's sync every 16 steps and every 64, in
+  the order 16, 64, 16, 64; the pool widths 2^17, 2^19 and 2^21 (ms,
+  iterations, occupancy); a cProfile of one render (host time by function);
+  then ``torch.profiler`` over 3 renders as in profile.
 
 Imports nothing of JAX.  Needs a CUDA device.
 """
@@ -225,6 +231,39 @@ def part_train(dev):
     emit({"train_profile": profiled(call)})
 
 
+def part_step(dev):
+    from cpu_path_tracing_tpu_torch.ops import wavefront
+
+    scene = tp.get_scene("box_mirror", MAIN.width, MAIN.height).to(dev)
+    ids = torch.arange(MAIN.num_cells, device=dev)
+
+    def call(lanes=None):
+        return wavefront.drive_items(mk.megakernel_step, scene, MAIN, ids, 0, MAIN.spp, lanes)
+
+    batch = wavefront.STEP_BATCH
+    try:
+        for b in (16, 64, 16, 64):
+            wavefront.STEP_BATCH = b
+            times, (_, st) = event_times(call)
+            emit({"step_batch": b, "ms": times, "iters": st["iters"]})
+    finally:
+        wavefront.STEP_BATCH = batch
+    for lanes in (1 << 17, 1 << 19, 1 << 21):
+        times, (_, st) = event_times(lambda: call(lanes))
+        emit({"lanes": lanes, "ms": times, "iters": st["iters"], "segments": st["segments"],
+              "occupancy": st["segments"] / (st["iters"] * lanes)})
+    prof = cProfile.Profile()
+    prof.enable()
+    call()
+    torch.cuda.synchronize()
+    prof.disable()
+    top = pstats.Stats(prof)
+    rows = sorted(((v[2], v[1], f"{k[0].split('/')[-1]}:{k[1]}:{k[2]}")
+                   for k, v in top.stats.items()), reverse=True)[:15]
+    emit({"step_render_top_host_self": [{"s": t, "calls": n, "fn": f} for t, n, f in rows]})
+    emit({"step_profile": profiled(call)})
+
+
 def part_scenes(dev):
     for name in tp.scene_names():
         if name == "disco_sphere":  # the alias of box_mirror
@@ -241,8 +280,8 @@ def part_scenes(dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "all"),
-                    default="all")
+    ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "step",
+                                       "all"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -250,7 +289,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print("smi", smi(), flush=True)
     for part, run in (("build", part_build), ("fmad", part_fmad), ("profile", part_profile),
-                      ("scenes", part_scenes), ("train", part_train)):
+                      ("scenes", part_scenes), ("train", part_train), ("step", part_step)):
         if args.part in (part, "all"):
             run(dev)
     print("smi", smi(), flush=True)

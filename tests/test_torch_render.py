@@ -105,20 +105,24 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize("change", [dict(dtype=torch.float64), dict(jitter="tent")])
 def test_cuda_scene_without_kernel_support_raises(monkeypatch, change):
-    """A CUDA scene in float64 or with tent jitter raises instead of taking
-    the plain path.  (No card here: the device check is patched.)"""
+    """A CUDA scene in float64 or with tent jitter raises when the kernels
+    are asked for (integrator='pallas') instead of falling back; 'auto'
+    sends it to the plain wavefront loop before anything launches.  (No
+    card here: the device check is patched.)"""
     monkeypatch.setattr(render, "_on_cuda", lambda scene: True)
     scene = tp.get_scene("box", 8, 6, dtype=change.get("dtype", torch.float32))
-    cfg = tp.RenderConfig(width=8, height=6, jitter=change.get("jitter", "uniform"))
+    cfg = tp.RenderConfig(width=8, height=6, jitter=change.get("jitter", "uniform"),
+                          integrator="pallas")
     with pytest.raises(ValueError, match="ROADMAP"):
         render.resolve_integrator(scene, cfg)
     with pytest.raises(ValueError, match="ROADMAP"):
         tp.render_image(scene, cfg)
+    assert render.resolve_integrator(scene, cfg.replace(integrator="auto")) == "wavefront"
     monkeypatch.setattr(render, "_on_cuda", lambda scene: False)
-    assert render.resolve_integrator(scene, cfg) == "plain"
+    assert render.resolve_integrator(scene, cfg.replace(integrator="auto")) == "plain"
 
 
 def test_float32_cuda_scene_resolves_to_the_kernel(monkeypatch):
     monkeypatch.setattr(render, "_on_cuda", lambda scene: True)
     cfg = tp.RenderConfig(width=8, height=6)
-    assert render.resolve_integrator(tp.get_scene("box", 8, 6), cfg) == "cuda"
+    assert render.resolve_integrator(tp.get_scene("box", 8, 6), cfg) == "pallas"
