@@ -9,7 +9,10 @@ does.  Each phase prints one JSON line; any failed check raises, so the
 script exits non-zero.
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
-2. build: nvcc seconds and each kernel's registers, stack and spills.
+2. build: nvcc seconds, each kernel's registers, stack and spills, and from
+   the SASS the loop of each probe op as the probe runs it: its
+   instructions and the arithmetic instruction that shows the loop was
+   neither folded nor hoisted.
 3. kernel_vs_plain: for every registered scene at 64x48, 2 spp, the
    kernel's per-item radiance against its plain PyTorch version on the card.
    Tier 1, max_depth 8: scale-aware deviation p99.9 < 1e-5 and fewer than
@@ -55,7 +58,7 @@ script exits non-zero.
    through ``render_cells_range``, one over a span past the last cell):
    bitwise equal to the whole-render kernel, tier 1 against the plain step.
 10. bench_path: the per-step slice at full size, ``cli bench --scene
-   box_mirror --total-spp 32 --device cuda`` (1024x768, max_depth 100, a
+   box_mirror --total-spp 32`` (on the card by default; 1024x768, max_depth 100, a
    pool of 524,288 lanes; one warm-up and 3 timed runs): its RenderReport,
    the per-step kernel's launches, the kernel's own time (device rows of
    torch.profiler over one render) per render and per step, the card's
@@ -67,8 +70,28 @@ script exits non-zero.
    kernel launches, and the card's per-cell sums agree with the CPU's
    (1e-9 relative in float64; tier 1 in float32).
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+12. probe_vs_plain: the probe kernels against their plain versions on the
+   card.  The op-chain kernel, every op at n = 64*128 and at the probe's
+   full width (1,081,344 elements), 16 iterations and the op's own count,
+   on seeded inputs: the uint32 round and Threefry bitwise (int64 words
+   and int32 bits), mul-add, add and select bitwise, the fused
+   multiply-add within 1 ulp, sin, sqrt and 1/sqrt within 2 ulp, with the
+   largest ulp distance seen and each plain version's time at full width.
+   The stream kernel at 2^26 and at 2^20 + 3 elements, bitwise.  Both
+   launch counts checked.
+13. probe_path: the machine-constant probe, ``scripts/torch_perf_probe.py``'s
+   ``probe()`` in process: its constants, the SM clock under load, each
+   rate's share of the card's published peak (an application charged the
+   function's operations by ``utils/roofline.CHAIN_OPS``, no loop
+   control), the stream kernel's GB/s beside ``torch.mul`` on the same
+   tensors.  Every rate finite and positive, no share above 100%.
+
+Then a ``{"kernels": [...]}`` line (five kernels, each with its launches on
+its path, its time, its plain version's, its bound, the least time the card
+could take for the same work at its published peaks, which side binds, the
+probe-model time of the render kernels, and a library call's time where one
+PyTorch call computes the same), the nvidia-smi line, and last ``{"ok":
+true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -113,20 +136,36 @@ def check(ok: bool, what: str) -> None:
 
 def ptxas_entries(log: str) -> list:
     """Per kernel: registers and the stack/spill line of ``nvcc -Xptxas -v``."""
+    from cpu_path_tracing_tpu_torch.utils.roofline import kernel_label
+
     out, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            mangled = ln.split("'")[1]
-            name = next((k for k in ("persistent_render_kernel", "megakernel_step_kernel",
-                                     "replay_kernel") if k in mangled), mangled)
-            if "ILi" in mangled:
-                name += "<" + mangled.split("ILi")[1].split("E")[0] + ">"
+            name = kernel_label(ln.split("'")[1])
             out.append({"kernel": name})
         elif name and "spill" in ln:
             out[-1]["stack_spills"] = ln.strip()
         elif name and "registers" in ln:
             out[-1]["registers"] = int(ln.split("Used ")[1].split(" registers")[0])
     return out
+
+
+def max_ulp(a, b) -> int:
+    """Largest distance in float32 steps between two tensors of finite
+    values of one sign."""
+    import torch
+
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def load_script(name: str):
+    """Import ``scripts/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def replay_deviation(got, ref, n_spheres: int):
@@ -175,9 +214,13 @@ def main() -> int:
     import cpu_path_tracing_tpu_torch as tp
     from cpu_path_tracing_tpu_torch import _build, cli, grad, render
     from cpu_path_tracing_tpu_torch.ops import wavefront
+    from cpu_path_tracing_tpu_torch.ops import rng as rng_ops
     from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+    from cpu_path_tracing_tpu_torch.ops.kernels import probe as pk
     from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
+    from cpu_path_tracing_tpu_torch.utils import profiling, roofline
 
+    tpp = load_script("torch_perf_probe")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -196,10 +239,35 @@ def main() -> int:
     _build.load()
     log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
     ptxas = ptxas_entries(log)
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "library": lib_path.name,
-          "ptxas": ptxas})
+    build_s = time.perf_counter() - t0
+    # What each probe loop holds: the arithmetic instruction of a simple
+    # body must be there once per application (not folded, not hoisted out
+    # of the loop).
+    loops = roofline.sass_loops(_build.sass())
+    probe_loops, loops_ok = {}, True
+    signature = {"mul_add": ("FMUL", "FADD"), "fma": ("FFMA",), "add": ("FADD",),
+                 "sqrt": ("MUFU",), "rsqrt": ("MUFU",), "u32_round": ("SHF",)}
+    for op, spec in pk.OPS.items():
+        loop = loops[f"probe_op_chain_kernel<{spec.code},{tpp.n_arrays(op)}>"]
+        apps = tpp.n_arrays(op) * spec.unroll
+        probe_loops[op] = {"instructions": loop["instructions"], "applications": apps,
+                           "signature": {k: loop["opcodes"].get(k, 0)
+                                         for k in signature.get(op, ())}}
+        loops_ok = loops_ok and all(loop["opcodes"].get(k, 0) >= apps
+                                    for k in signature.get(op, ()))
+    loops_ok = loops_ok and loops[f"probe_op_chain_kernel<{pk.OPS['mul_add'].code},8>"][
+        "opcodes"].get("FFMA", 0) == 0
+    emit({"phase": "build", "seconds": round(build_s, 3), "library": lib_path.name,
+          "ptxas": [e for e in ptxas if not e["kernel"].startswith("probe_op_chain_kernel")
+                    or e["kernel"] in {f"probe_op_chain_kernel<{spec.code},{tpp.n_arrays(op)}>"
+                                       for op, spec in pk.OPS.items()}],
+          "probe_loops": probe_loops, "probe_loops_ok": loops_ok})
     check({e["kernel"] for e in ptxas} >= {"persistent_render_kernel", "megakernel_step_kernel",
-                                           "replay_kernel<8>"}, "the build log lacks a kernel")
+                                           "replay_kernel<8>", "probe_stream_kernel",
+                                           "probe_op_chain_kernel<0,8>"},
+          "the build log lacks a kernel")
+    check(loops_ok, "a probe loop lacks its arithmetic instruction (folded or hoisted), or the "
+                    "mul-add chain was contracted")
 
     # ---- 3. kernel vs plain version, every scene ----
     W, H, SPP = 64, 48, 2
@@ -309,9 +377,15 @@ def main() -> int:
     check(abs(segments - ref_stats["segments"]) <= 1e-3 * ref_stats["segments"],
           "kernel and plain version count different segments")
 
+    # The bound: 12 bytes written per item and the scene read once, against
+    # the operations these paths need (utils/roofline.py) at one issue each.
+    k2_ops = roofline.render_ops(scene.num_spheres, segments, kw["n_items"])
+    k2_bound, k2_by = roofline.bound_ms(12 * kw["n_items"] + 4 * (table.numel() + cam.numel()),
+                                        k2_ops.issues())
     k2 = {"name": "persistent_render", "route": "cuda", "source": f"{PKG}/csrc/megakernel.cu",
           "replaces": "cpu_path_tracing_tpu/ops/pallas/megakernel.py:726",
-          "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms}
+          "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None}
 
     # ---- 6. the replay kernel vs its plain version ----
     worst = 0.0
@@ -445,9 +519,15 @@ def main() -> int:
     emit(rec)
     check(rec["ok"], "the production inverse step")
 
+    # One chunk: the cotangent and the scene read once, the partials written
+    # once, against the forward's operations plus the accumulation's.
+    k3_ops = roofline.render_ops(sc.num_spheres, int(st["segments"]), kw["n_items"], replay=True)
+    k3_bound, k3_by = roofline.bound_ms(
+        4 * (ct.numel() + table.numel() + cam.numel() + got.numel()), k3_ops.issues())
     k3 = {"name": "replay_persistent", "route": "cuda", "source": f"{PKG}/csrc/replay.cu",
           "replaces": "cpu_path_tracing_tpu/ops/pallas/replay_kernel.py:248",
-          "launches": k3_launches, "max_abs_err": worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms}
+          "launches": k3_launches, "max_abs_err": worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None}
     # ---- 8. the per-step kernel vs its plain step and the whole-render kernel ----
     step_err = 0.0
     for name in tp.scene_names():
@@ -535,8 +615,8 @@ def main() -> int:
 
     cfg = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
     scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
-    argv = ["bench", "--scene", "box_mirror", "--total-spp", "32", "--device", "cuda",
-            "--repeats", "3"]
+    # No --device: the command line's default is the card.
+    argv = ["bench", "--scene", "box_mirror", "--total-spp", "32", "--repeats", "3"]
     mk.persistent_render.launches = mk.megakernel_step.launches = 0
     rk.replay_persistent.launches = 0
     buf = io.StringIO()
@@ -546,6 +626,7 @@ def main() -> int:
     check(mk.persistent_render.launches == 0 and rk.replay_persistent.launches == 0,
           "cli bench launched another kernel than the per-step kernel")
     report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(report["device"] == kind, "cli bench did not run on the card by default")
     check(k4_launches >= 4 * report["iters"] > 0,
           "cli bench did not launch the per-step kernel at least once per iteration")
 
@@ -564,14 +645,10 @@ def main() -> int:
         torch.cuda.synchronize()
     loop_ms = start.elapsed_time(end)
     steps = mk.megakernel_step.launches - before
-    k4_ms = k4_count = device_ms = 0.0
-    for k in prof.key_averages():
-        d = getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
-        if d > 0 and k.device_type != torch.autograd.DeviceType.CPU:
-            device_ms += d / 1e3
-            if "megakernel_step_kernel" in k.key:
-                k4_ms += d / 1e3
-                k4_count += k.count
+    by_kernel = profiling.device_time_by_kernel(prof)
+    device_ms = sum(ms for ms, _ in by_kernel.values())
+    k4_ms = sum(ms for key, (ms, _) in by_kernel.items() if "megakernel_step_kernel" in key)
+    k4_count = sum(n for key, (_, n) in by_kernel.items() if "megakernel_step_kernel" in key)
     check(k4_count == steps and k4_ms > 0, "the profiler did not see every per-step launch")
     n_items = cfg.spp * cfg.num_cells
     B = st["lanes"]
@@ -615,7 +692,12 @@ def main() -> int:
     k4 = {"name": "megakernel_step", "route": "cuda", "source": f"{PKG}/csrc/megakernel_step.cu",
           "replaces": "cpu_path_tracing_tpu/ops/pallas/megakernel.py:518",
           "launches": k4_launches, "max_abs_err": step_err, "ms": k4_ms,
-          "plain_ms": plain_step_ms}
+          "plain_ms": plain_step_ms, "library_ms": None}
+    # One render: the lane-state and output bytes counted above against the
+    # whole-render kernel's operations on the same paths.
+    k4_ops = roofline.render_ops(scene.num_spheres, st["segments"], n_items)
+    k4["bound_ms"], k4["bound_by"] = roofline.bound_ms(
+        state_bytes + 4 * (table.numel() + cam.numel()), k4_ops.issues())
 
     # ---- 11. float64 and tent jitter on the card: the plain wavefront loop ----
     for name, dtype, jitter in (("box_mirror", torch.float64, "uniform"),
@@ -646,7 +728,115 @@ def main() -> int:
         emit(rec)
         check(rec["ok"], f"the wavefront route on the card ({name}, {dtype}, {jitter})")
 
-    emit({"kernels": [k2, k3, k4]})
+    # ---- 12. the probe kernels vs their plain versions ----
+    rng = np.random.default_rng(21)
+    ulp_limit = {"fma": 1, "sin": 2, "sqrt": 2, "rsqrt": 2}  # every other op: bitwise
+    pk.op_chain.launches = pk.stream_scale.launches = 0
+    expected_launches, k5_err, k5_plain_ms, k5_ulp = 0, 0.0, {}, {}
+    for op, spec in pk.OPS.items():
+        na, worst_ulp, ok = tpp.n_arrays(op), 0, True
+        for n, iters in ((64 * 128, 16), (64 * 128, spec.iters), (tpp.FULL_N, 16),
+                         (tpp.FULL_N, spec.iters)):
+            if spec.words:
+                xs = torch.from_numpy(rng.integers(0, 2**32, (na, n), dtype=np.int64)).to(dev)
+            else:
+                xs = torch.from_numpy(rng.uniform(0.25, 1.5, (na, n)).astype(np.float32)).to(dev)
+            got = pk.op_chain(xs, op, iters)
+            expected_launches += 1
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref = pk.op_chain_reference(xs, op, iters)
+            end.record()
+            torch.cuda.synchronize()
+            if (n, iters) == (tpp.FULL_N, spec.iters):
+                k5_plain_ms[op] = start.elapsed_time(end)
+            if spec.words:
+                bits = pk.op_chain(rng_ops.int32_bits(xs), op, iters)
+                expected_launches += 1
+                ok = ok and torch.equal(got, ref) and torch.equal(
+                    rng_ops.words_from_int32(bits), ref)
+            else:
+                ok = ok and bool(torch.isfinite(got).all())
+                worst_ulp = max(worst_ulp, max_ulp(got, ref))
+                k5_err = max(k5_err, float((got - ref).abs().max()))
+        ok = ok and worst_ulp <= ulp_limit.get(op, 0)
+        k5_ulp[op] = worst_ulp
+        emit({"phase": "probe_vs_plain", "kernel": "op_chain", "op": op, "n_arrays": na,
+              "sizes": [64 * 128, tpp.FULL_N], "iters": [16, spec.iters],
+              "bitwise": worst_ulp == 0, "max_ulp": worst_ulp,
+              "ulp_limit": ulp_limit.get(op, 0), "plain_ms_full": k5_plain_ms[op], "ok": ok})
+        check(ok, f"op_chain({op}) against its plain version")
+    stream_ok, k6_err = True, 0.0
+    for n in (tpp.STREAM_N, (1 << 20) + 3):
+        x = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+        got, ref = pk.stream_scale(x), pk.stream_scale_reference(x)
+        stream_ok = stream_ok and torch.equal(got, ref)
+        k6_err = max(k6_err, float((got - ref).abs().max()))
+    counts_ok = (pk.op_chain.launches == expected_launches and pk.stream_scale.launches == 2)
+    emit({"phase": "probe_vs_plain", "kernel": "stream_scale",
+          "sizes": [tpp.STREAM_N, (1 << 20) + 3], "bitwise": stream_ok,
+          "op_chain_launches": pk.op_chain.launches, "stream_scale_launches": 2,
+          "ok": stream_ok and counts_ok})
+    check(stream_ok and counts_ok, "stream_scale against its plain version, or a launch count")
+
+    # ---- 13. the probe, end to end ----
+    pk.op_chain.launches = pk.stream_scale.launches = 0
+    res = tpp.probe()
+    k5_launches, k6_launches = pk.op_chain.launches, pk.stream_scale.launches
+    check(k5_launches >= len(pk.OPS) and k6_launches >= 1,
+          "the probe did not launch both of its kernels")
+    # The stream kernel's library call and plain version on the probe's tensor.
+    x = torch.arange(tpp.STREAM_N, dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    library_ms = tpp.time_ms(lambda: torch.mul(x, 2.0, out=y), 10)
+    k6_plain_ms = tpp.time_ms(lambda: pk.stream_scale_reference(x), 10)
+    del x, y, got, ref
+    rates = {k: res[k] for k in (*tpp.RATE_KEYS.values(), "f32_fma_gflops", "mem_stream_gbps",
+                                 "mem_kernel_stream_gbps")}
+    shares = res["share_of_peak"]
+    rec = {"phase": "probe_path", "command": "python3 scripts/torch_perf_probe.py",
+           "probe": res, "op_chain_launches": k5_launches, "stream_scale_launches": k6_launches,
+           "k6_gbps": res["mem_kernel_stream_gbps"],
+           "k6_share_of_peak": shares["mem_kernel_stream_gbps"],
+           "k6_ms": res["ms"]["stream_scale"],
+           "torch_mul_ms": library_ms, "k6_vs_torch_mul": res["ms"]["stream_scale"] / library_ms}
+    rec["ok"] = (all(np.isfinite(v) and v > 0 for v in rates.values())
+                 and set(shares) == set(rates) - {"f32_fma_gflops"}
+                 and all(0 < v <= 1.0 for v in shares.values()))
+    emit(rec)
+    check(rec["ok"], "the probe: a rate is not finite and positive, or a share is above 100%")
+
+    # The op-chain entry sums one launch of every op at the probe's width;
+    # an op's bound is its applications times what the counting rule charges
+    # one (roofline.CHAIN_OPS: the function's operations, no loop control)
+    # over the issue peak, or its bytes if they bind.
+    k5_ops = {}
+    for op, spec in pk.OPS.items():
+        apps = tpp.n_arrays(op) * tpp.FULL_N * spec.iters
+        b_ms, b_by = roofline.bound_ms(4 * (tpp.n_arrays(op) + 1) * tpp.FULL_N,
+                                       apps * roofline.CHAIN_OPS[op].issues())
+        k5_ops[op] = {"ms": res["ms"][op], "plain_ms": k5_plain_ms[op], "bound_ms": b_ms,
+                      "bound_by": b_by, "max_ulp": k5_ulp[op]}
+    k5 = {"name": "op_chain", "route": "cuda", "source": f"{PKG}/csrc/probe.cu",
+          "replaces": "scripts/perf_probe.py:46", "launches": k5_launches,
+          "max_abs_err": k5_err, "ms": sum(v["ms"] for v in k5_ops.values()),
+          "plain_ms": sum(v["plain_ms"] for v in k5_ops.values()),
+          "bound_ms": sum(v["bound_ms"] for v in k5_ops.values()),
+          "bound_by": "operations" if all(v["bound_by"] == "operations"
+                                          for v in k5_ops.values()) else "bytes",
+          "library_ms": None, "ops": k5_ops}
+    k6_bound, k6_by = roofline.bound_ms(2 * 4 * tpp.STREAM_N, tpp.STREAM_N)
+    k6 = {"name": "stream_scale", "route": "cuda", "source": f"{PKG}/csrc/probe.cu",
+          "replaces": "scripts/perf_probe.py:142", "launches": k6_launches,
+          "max_abs_err": k6_err, "ms": res["ms"]["stream_scale"],
+          "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
+          "library_ms": library_ms}
+    # Beside each render kernel's published-peak bound, its operations at
+    # the rates the probe just measured.
+    for entry, ops in ((k2, k2_ops), (k3, k3_ops), (k4, k4_ops)):
+        entry["probe_model_ms"] = roofline.probe_model_ms(ops, res)
+
+    emit({"kernels": [k2, k3, k4, k5, k6]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -94,6 +94,21 @@ def build(flags: tuple[str, ...] = FLAGS) -> Path:
     return lib
 
 
+def sass(flags: tuple[str, ...] = FLAGS) -> str:
+    """The built library's machine code as ``cuobjdump -sass`` prints it (the
+    tool beside nvcc), for counting what a kernel's loop really issues
+    (``utils/roofline.sass_loops``).  Raises RuntimeError when the tool is
+    missing or fails."""
+    nvcc = find_nvcc()
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None
+    if not tool or not os.path.isfile(tool):
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    proc = subprocess.run([tool, "-sass", str(build(flags))], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}): {proc.stderr}")
+    return proc.stdout
+
+
 @functools.cache
 def load(flags: tuple[str, ...] = FLAGS) -> ctypes.CDLL:
     """Build if needed, load once, and declare the C entry points."""
@@ -109,6 +124,12 @@ def load(flags: tuple[str, ...] = FLAGS) -> ctypes.CDLL:
     lib.pt_replay_grid.restype = ctypes.c_int
     lib.pt_replay_persistent.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp]
     lib.pt_replay_persistent.restype = ctypes.c_int
+    lib.pt_probe_op_chain.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_longlong,
+                                      ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                                      ctypes.c_float, ctypes.c_uint, vp]
+    lib.pt_probe_op_chain.restype = ctypes.c_int
+    lib.pt_probe_stream.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_float, vp]
+    lib.pt_probe_stream.restype = ctypes.c_int
     lib.pt_error_string.argtypes = [ctypes.c_int]
     lib.pt_error_string.restype = ctypes.c_char_p
     return lib

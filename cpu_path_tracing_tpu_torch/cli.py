@@ -4,11 +4,17 @@ Counterpart of ``cpu_path_tracing_tpu/cli.py``'s ``render``, ``invert`` and
 ``bench`` without the mesh, tile, checkpoint and multi-host options:
 
     python -m cpu_path_tracing_tpu_torch.cli render --scene box_mirror \\
-        --width 1024 --height 768 --total-spp 32 --device cuda -o disco.png
+        --width 1024 --height 768 --total-spp 32 -o disco.png
     python -m cpu_path_tracing_tpu_torch.cli invert --scene box \\
-        --width 400 --height 400 --spp 16 --steps 100 --device cuda
-    python -m cpu_path_tracing_tpu_torch.cli bench --scene box_mirror \\
-        --total-spp 32 --device cuda
+        --width 400 --height 400 --spp 16 --steps 100
+    python -m cpu_path_tracing_tpu_torch.cli bench --scene box_mirror --total-spp 32
+    python -m cpu_path_tracing_tpu_torch.cli render --scene box --width 64 \\
+        --height 48 --spp 2 --device cpu -o box.png
+
+Every subcommand runs on the card (``--device cuda``, the default) and
+fails before doing any work when there is none; ``--device cpu`` asks for
+the CPU.  ``--profile-dir DIR`` captures a ``torch.profiler`` trace of the
+command there (``utils/profiling.maybe_trace``).
 
 ``--integrator`` picks the route (``render.resolve_integrator``): 'pallas'
 the CUDA kernels, 'wavefront' the plain wavefront loop, 'auto' the kernels
@@ -36,6 +42,7 @@ import torch
 
 from . import RenderConfig, get_scene, scene_names, write_png, write_ppm
 from .render import render_image
+from .utils.profiling import maybe_trace
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -48,7 +55,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                     help="total spp as in the reference CLI (divided by subpixels^2)")
     p.add_argument("--max-depth", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cpu", help="torch device, e.g. cpu or cuda")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the default; fails without a card) or cpu")
+    p.add_argument("--profile-dir", default=None, help="capture a torch.profiler trace here")
     p.add_argument("--integrator", choices=("auto", "wavefront", "pallas"), default="auto")
     p.add_argument("--jitter", choices=("uniform", "tent"), default="uniform",
                    help="subpixel filter: uniform (reference binary) or tent (sandbox "
@@ -92,6 +101,16 @@ def _config(args) -> RenderConfig:
     return RenderConfig(width=args.width, height=args.height, spp=spp,
                         max_depth=args.max_depth, seed=args.seed, integrator=args.integrator,
                         jitter=args.jitter, **lanes)
+
+
+def _device(args) -> torch.device:
+    """The device asked for; a CUDA device that is not there is an error,
+    never a silent move to the CPU."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is available; "
+                         "pass --device cpu to run on the CPU")
+    return device
 
 
 def cmd_render(args) -> int:
@@ -180,7 +199,9 @@ def cmd_bench(args) -> int:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    return {"render": cmd_render, "invert": cmd_invert, "bench": cmd_bench}[args.cmd](args)
+    args.device = _device(args)  # fails before any work, and before a trace is opened
+    with maybe_trace(args.profile_dir):
+        return {"render": cmd_render, "invert": cmd_invert, "bench": cmd_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -272,7 +272,6 @@ persistent_render.launches = 0
 LANE_F = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz", "emx", "emy", "emz")
 LANE_I = ("depth", "k0", "k1", "gen", "alive")
 _DEPTH, _K0, _K1, _GEN, _ALIVE = range(len(LANE_I))
-_WORD = 0xFFFFFFFF
 
 
 class LaneState(NamedTuple):
@@ -302,11 +301,6 @@ def lane_state_from_arrays(d) -> LaneState:
                   else np.asarray(d[n], np.int32).reshape(-1) for n in LANE_I])
     return LaneState(torch.from_numpy(np.ascontiguousarray(f)),
                      torch.from_numpy(np.ascontiguousarray(i)))
-
-
-def _int32_bits(words: torch.Tensor) -> torch.Tensor:
-    """int64 tensor of uint32 values -> int32 tensor of the same bits."""
-    return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
 
 
 def _check_step(state: LaneState, table, *, n_cells: int, n_items: int, lanes: int, out,
@@ -360,7 +354,7 @@ def megakernel_step_reference(state: LaneState, table, cam, dyn, *, cfg: RenderC
         _, (a0, a1), o, d = rays_for_items(cfg, camera, dyn, n_cells, item[new], table.dtype)
         f[:, new] = torch.cat([o.T, d.T, torch.ones_like(o.T), torch.zeros_like(o.T)])
         iv[_DEPTH, new] = 0
-        iv[_K0, new], iv[_K1, new] = _int32_bits(a0), _int32_bits(a1)
+        iv[_K0, new], iv[_K1, new] = rng_ops.int32_bits(a0), rng_ops.int32_bits(a1)
         iv[_ALIVE, new] = 1
     lane = torch.nonzero(iv[_ALIVE] != 0).squeeze(1)
     seg[seg_slot] += lane.numel()
@@ -371,8 +365,8 @@ def megakernel_step_reference(state: LaneState, table, cam, dyn, *, cfg: RenderC
                    emission=fl[9:12].T, alive=torch.ones_like(lane, dtype=torch.bool),
                    result=torch.zeros_like(fl[0:3].T))
     depth = iv[_DEPTH, lane].long()
-    u = rng_ops.bounce_uniforms(iv[_K0, lane].long() & _WORD, iv[_K1, lane].long() & _WORD,
-                                depth).to(table.dtype)
+    u = rng_ops.bounce_uniforms(rng_ops.words_from_int32(iv[_K0, lane]),
+                                rng_ops.words_from_int32(iv[_K1, lane]), depth).to(table.dtype)
     ray = bounce_step(spheres, ray, u, depth, rr_depth=cfg.rr_depth, epsilon=cfg.epsilon,
                       inf=cfg.inf)
     depth = depth + 1

@@ -37,6 +37,17 @@ def _word(x, like=None) -> torch.Tensor:
     return torch.as_tensor(int(x) & _MASK, dtype=torch.int64, device=device)
 
 
+def int32_bits(words: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of uint32 values -> int32 tensor of the same bits, the
+    storage the CUDA kernels take for a word."""
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
+
+
+def words_from_int32(bits: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``int32_bits``: int32 bit patterns -> int64 words."""
+    return bits.to(torch.int64) & _MASK
+
+
 def threefry2x32(k0, k1, c0, c1, rounds: int = ROUNDS) -> Tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32 block: keys (k0,k1), counter (c0,c1) -> 2 words.
 

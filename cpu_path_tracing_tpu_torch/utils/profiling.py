@@ -1,0 +1,62 @@
+"""Profiler hooks: the counterpart of ``cpu_path_tracing_tpu/utils/profiling.py``.
+
+``maybe_trace`` captures a ``torch.profiler`` trace around any render (a
+Chrome trace, viewable in Perfetto or chrome://tracing), ``annotate`` names
+a pipeline phase in such a trace (and in an NVTX timeline on the card), and
+``device_time_by_kernel`` sums a profile's device time by kernel name.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import torch
+
+
+@contextlib.contextmanager
+def maybe_trace(profile_dir=None):
+    """Capture a torch.profiler trace into ``profile_dir`` when given: one
+    ``trace_<pid>_<ns>.json`` per use, with the card's activity where there
+    is a card.  Yields the profiler (None when off)."""
+    if not profile_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(profile_dir,
+                                          f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named scope that shows up in profiler traces."""
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+def device_time_by_kernel(prof) -> dict:
+    """``{kernel name: (device ms, launches)}`` of a finished profile.  Only
+    device-side rows count: a CPU-side op or autograd range also carries
+    its kernels' time as self device time."""
+    out = {}
+    for k in prof.key_averages():
+        d = getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
+        if d > 0 and k.device_type != torch.autograd.DeviceType.CPU:
+            ms, count = out.get(k.key, (0.0, 0))
+            out[k.key] = (ms + d / 1e3, count + k.count)
+    return out

@@ -1,0 +1,201 @@
+"""Bounds for the kernels: the least time an H100 could take for their work.
+
+A kernel's bound is the larger of two times: the bytes it must move (each
+input read once, each output written once) over the card's published
+memory rate, and the operations it does on these inputs over the card's
+published rate for their type (``bound_ms``).  For the render kernels the
+work depends on the data, so the operations are counted per path segment,
+per continuing segment and per item from the expression chains of
+``csrc/step_math.cuh`` (``segment_ops`` and friends) and multiplied by
+what a run measured.  The same counts times the per-op times that
+``scripts/torch_perf_probe.py`` measures give the probe-model time
+(``probe_model_ms``): what the card's own measured rates allow, without
+divergence or idle threads.  ``CHAIN_OPS`` counts one application of each
+probe op chain by the same rule.  ``sass_loops`` reads which instructions
+a kernel's loop holds from ``cuobjdump -sass`` output.
+
+Counting rule: every float or integer add, subtract, multiply, compare,
+select, conversion, shift and xor written in the source is one ``simple``
+operation; a square root, a division and a sine or cosine are one
+operation of their own class; a 13-round Threefry-2x32 block is 42 simple
+operations (13 rounds of add, rotate, xor, and 3 for the key schedule: the
+rest of it folds into three-input adds and xors, as the SASS of the
+probe's Threefry loop shows).  The published-peak bound charges every
+operation one issue, which is a floor: a precise square root or division
+takes several.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import NamedTuple
+
+# NVIDIA's data sheet for the H100 SXM at its 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+# 67 TFLOP/s float32 outside the tensor cores, counted as 2 flops per fused
+# multiply-add: 132 SMs x 128 lanes x 1.98 GHz issues a second.
+PEAK_FP32_ISSUES_PER_S = 33.5e12
+THREEFRY_BLOCK_OPS = 42
+
+
+class OpCounts(NamedTuple):
+    """Operations of one unit of work, by class."""
+
+    simple: int = 0
+    threefry: int = 0  # 13-round blocks
+    sqrt: int = 0
+    div: int = 0
+    sincos: int = 0
+
+    def issues(self) -> int:
+        """Every operation charged one issue (a Threefry block 42)."""
+        return (self.simple + THREEFRY_BLOCK_OPS * self.threefry + self.sqrt + self.div
+                + self.sincos)
+
+    def plus(self, other: "OpCounts") -> "OpCounts":
+        return OpCounts(*(a + b for a, b in zip(self, other)))
+
+    def times(self, n: int) -> "OpCounts":
+        return OpCounts(*(n * a for a in self))
+
+
+def segment_ops(n_spheres: int) -> OpCounts:
+    """What every path segment does in ``pt::bounce``: two Threefry blocks
+    and three uniforms (1 + 9), the ray's squared length and its reciprocal
+    (5, one division), per sphere the anchor-point quadratic and its root
+    choice (52, one square root, one division), and 1/|d| (2, one square
+    root, one division)."""
+    return OpCounts(simple=17 + 52 * n_spheres, threefry=2, sqrt=n_spheres + 1,
+                    div=n_spheres + 2)
+
+
+def continue_ops() -> OpCounts:
+    """What a segment that goes on to another adds at the least: the hit
+    record, the emission pickup, the roulette test, the cheapest sampler
+    (specular reflection) and the state update."""
+    return OpCounts(simple=64, sqrt=1, div=1)
+
+
+def item_ops() -> OpCounts:
+    """``pt::start_path``, once per item: the item key and the lens pair
+    (two blocks, four uniforms), the cell's screen position and the
+    thin-lens ray."""
+    return OpCounts(simple=70, threefry=2, sqrt=1, sincos=2)
+
+
+def replay_segment_ops(n_spheres: int) -> OpCounts:
+    """What the replay kernel adds to every segment: the cotangent times
+    the throughput and the pickup (8), per sphere the four weighted
+    accumulations and the hit test (9), and the emission partial (3)."""
+    return OpCounts(simple=11 + 9 * n_spheres)
+
+
+def render_ops(n_spheres: int, segments: int, n_items: int, *, replay: bool = False) -> OpCounts:
+    """The operations of a render of ``n_items`` paths that took
+    ``segments`` segments in all (each path's last segment does not go on).
+    With ``replay``, the replay kernel's accumulation as well."""
+    per_segment = segment_ops(n_spheres)
+    if replay:
+        per_segment = per_segment.plus(replay_segment_ops(n_spheres))
+    return (per_segment.times(segments).plus(continue_ops().times(segments - n_items))
+            .plus(item_ops().times(n_items)))
+
+
+# One application of each op chain of ``ops/kernels/probe.py``, by the
+# counting rule above and without the loop's own control instructions: the
+# multiply-add as this package compiles it (two) and as the fused
+# instruction (one); sqrt(x + b); 1 / sqrt(x + b); compare, multiply, add,
+# select; add, rotate, xor; a Threefry block with the xors and the add that
+# make its inputs and fold its outputs.
+CHAIN_OPS = {
+    "mul_add": OpCounts(simple=2),
+    "fma": OpCounts(simple=1),
+    "add": OpCounts(simple=1),
+    "sin": OpCounts(sincos=1),
+    "sqrt": OpCounts(simple=1, sqrt=1),
+    "rsqrt": OpCounts(simple=1, sqrt=1, div=1),
+    "select": OpCounts(simple=4),
+    "u32_round": OpCounts(simple=3),
+    "threefry": OpCounts(simple=3, threefry=1),
+}
+
+
+def bound_ms(nbytes: float, issues: float) -> tuple[float, str]:
+    """(least ms, which side binds) for moving ``nbytes`` and issuing
+    ``issues`` operations at the published peaks."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = issues / PEAK_FP32_ISSUES_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def probe_model_ms(ops: OpCounts, constants: dict) -> float:
+    """``ops`` at the rates a probe measured (``scripts/torch_perf_probe.py``
+    keys, in G/s): a simple operation at the add chain's rate; a square
+    root at the sqrt chain's time less its add; a division at the 1/sqrt
+    chain's time less the sqrt chain's; a sine or cosine at the sin
+    chain's; a Threefry block at the cipher's rate."""
+    t_simple = 1.0 / constants["f32_add_gops"]
+    t_sqrt = 1.0 / constants["sqrt_gops"] - t_simple
+    t_div = 1.0 / constants["rsqrt_gops"] - 1.0 / constants["sqrt_gops"]
+    t_sin = 1.0 / constants["sin_gops"]
+    t_block = 1.0 / constants["threefry2x32_gblocks_per_s"]
+    ns = (ops.simple * t_simple + ops.sqrt * t_sqrt + ops.div * t_div + ops.sincos * t_sin
+          + ops.threefry * t_block)
+    return ns / 1e6
+
+
+_INSTRUCTION = re.compile(
+    r"^\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+
+
+def kernel_label(mangled: str) -> str:
+    """``replay_kernel<8>`` from a mangled entry name: the ``*_kernel``
+    function (found by its length prefix, which may follow the hex digits
+    of an anonymous namespace's name) and its integer template arguments."""
+    for run in re.finditer(r"\d+", mangled):
+        for start in range(run.start(), run.end()):
+            name = mangled[run.end():run.end() + int(mangled[start:run.end()])]
+            if name.endswith("_kernel") and re.fullmatch(r"[a-z][a-z0-9_]*", name):
+                args = re.match(r"I((?:Li\d+E)+)E", mangled[run.end() + len(name):])
+                ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                return name + (f"<{','.join(ints)}>" if ints else "")
+    return mangled
+
+
+def sass_loops(sass: str) -> dict:
+    """Per kernel of a ``cuobjdump -sass`` listing, its widest loop: the
+    instructions from the target of a backward branch to that branch,
+    ``{label: {"instructions": n, "opcodes": {opcode: count}}}`` with the
+    opcode's first part as key (``FMUL``, ``MUFU``).  The span also holds
+    what a forward branch skips at run time (a slow path compiled in line),
+    so it shows that an instruction is in the loop, not how many issue on a
+    trip.  A kernel without a backward branch is left out."""
+    out, label, code = {}, None, []
+
+    def close():
+        if label is None:
+            return
+        index = {addr: i for i, (addr, _, _, _) in enumerate(code)}
+        best = None
+        for i, (addr, _, op, rest) in enumerate(code):
+            target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+            if target and int(target.group(1), 16) <= addr and int(target.group(1), 16) in index:
+                span = (index[int(target.group(1), 16)], i)
+                if best is None or span[1] - span[0] > best[1] - best[0]:
+                    best = span
+        if best is not None:
+            ops = {}
+            for _, _, op, _ in code[best[0]:best[1] + 1]:
+                ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+            out[label] = {"instructions": best[1] - best[0] + 1, "opcodes": ops}
+
+    for line in sass.splitlines():
+        if "Function :" in line:
+            close()
+            label, code = kernel_label(line.split("Function :")[1].strip()), []
+            continue
+        m = _INSTRUCTION.match(line)
+        if m and label is not None:
+            code.append((int(m.group(1), 16), bool(m.group(2)), m.group(3), m.group(4)))
+    close()
+    return out

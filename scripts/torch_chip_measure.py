@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 scripts/torch_chip_measure.py [--part build|fmad|profile|scenes|train|step|all]
+    python3 scripts/torch_chip_measure.py [--part build|fmad|profile|scenes|train|step|probe|all]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
@@ -31,6 +31,11 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   the order 16, 64, 16, 64; the pool widths 2^17, 2^19 and 2^21 (ms,
   iterations, occupancy); a cProfile of one render (host time by function);
   then ``torch.profiler`` over 3 renders as in profile.
+- probe: the machine-constant probe (``scripts/torch_perf_probe.py``) three
+  times in one process: each run's line, then each constant's least, median
+  and greatest value and its spread, (greatest - least) / median; then the
+  fma chain at 2,048, 8,192 and 32,768 iterations (what a launch costs
+  beside its loop).
 
 Imports nothing of JAX.  Needs a CUDA device.
 """
@@ -56,6 +61,7 @@ import torch  # noqa: E402
 import cpu_path_tracing_tpu_torch as tp  # noqa: E402
 from cpu_path_tracing_tpu_torch import _build, render  # noqa: E402
 from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk  # noqa: E402
+from cpu_path_tracing_tpu_torch.utils import profiling, roofline  # noqa: E402
 
 MAIN = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
 VARIANTS = {"nofma": _build.FLAGS, "fma": tuple(f for f in _build.FLAGS if f != "-fmad=false")}
@@ -154,9 +160,8 @@ def part_fmad(dev):
 
 def profiled(call, runs: int = 3) -> dict:
     """``torch.profiler`` over ``runs`` calls: the window's CUDA-event time,
-    device time by kernel, and the share of the window the device was busy.
-    Only device-side rows count: a CPU-side op or autograd range also
-    carries its kernels' time as self device time."""
+    device time by kernel (``profiling.device_time_by_kernel``: device-side
+    rows only), and the share of the window the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -167,12 +172,8 @@ def profiled(call, runs: int = 3) -> dict:
         e1.record()
         torch.cuda.synchronize()
     window_ms = e0.elapsed_time(e1)
-    rows = []
-    for k in prof.key_averages():
-        d = getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
-        if d > 0 and k.device_type != torch.autograd.DeviceType.CPU:
-            rows.append((d / 1e3, k.count, k.key))
-    rows.sort(reverse=True)
+    rows = sorted(((ms, n, key) for key, (ms, n) in
+                   profiling.device_time_by_kernel(prof).items()), reverse=True)
     device_ms = sum(r[0] for r in rows)
     host = sorted(((k.self_cpu_time_total / 1e3, k.count, k.key) for k in prof.key_averages()
                    if k.device_type == torch.autograd.DeviceType.CPU), reverse=True)
@@ -264,6 +265,27 @@ def part_step(dev):
     emit({"step_profile": profiled(call)})
 
 
+def part_probe(dev):
+    import torch_perf_probe as tpp  # beside this script
+
+    runs = [tpp.probe() for _ in range(3)]
+    for r in runs:
+        emit({"probe_run": r})
+    spread = {}
+    for key in (*tpp.RATE_KEYS.values(), "mem_stream_gbps", "mem_kernel_stream_gbps"):
+        lo, mid, hi = sorted(r[key] for r in runs)
+        spread[key] = {"least": lo, "median": mid, "greatest": hi, "spread": (hi - lo) / mid}
+    emit({"probe_spread": spread, "issues_per_op": runs[0]["issues_per_op"]})
+    from cpu_path_tracing_tpu_torch.ops.kernels import probe as pk
+
+    xs = torch.ones((8, tpp.FULL_N), device=dev)
+    for iters in (2048, 8192, 32768):
+        ms = tpp.time_ms(lambda: pk.op_chain(xs, "fma", iters), 10)
+        rate = xs.numel() * iters / (ms / 1e3)
+        emit({"fma_chains": 8, "iters": iters, "ms": ms, "gops": rate / 1e9,
+              "share_of_peak": rate / roofline.PEAK_FP32_ISSUES_PER_S})
+
+
 def part_scenes(dev):
     for name in tp.scene_names():
         if name == "disco_sphere":  # the alias of box_mirror
@@ -281,7 +303,7 @@ def part_scenes(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "step",
-                                       "all"), default="all")
+                                       "probe", "all"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -289,7 +311,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print("smi", smi(), flush=True)
     for part, run in (("build", part_build), ("fmad", part_fmad), ("profile", part_profile),
-                      ("scenes", part_scenes), ("train", part_train), ("step", part_step)):
+                      ("scenes", part_scenes), ("train", part_train), ("step", part_step),
+                      ("probe", part_probe)):
         if args.part in (part, "all"):
             run(dev)
     print("smi", smi(), flush=True)

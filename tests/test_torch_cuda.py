@@ -11,8 +11,10 @@ import pytest
 import torch
 
 import cpu_path_tracing_tpu_torch as tp
+from cpu_path_tracing_tpu_torch.ops import rng as rng_ops
 from cpu_path_tracing_tpu_torch.ops import wavefront
 from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+from cpu_path_tracing_tpu_torch.ops.kernels import probe as pk
 from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
 from cpu_path_tracing_tpu_torch.ops.replay import partial_blocks
 
@@ -159,3 +161,48 @@ def test_replay_kernel_is_bitwise_repeatable(cuda):
     first, _ = rk.replay_persistent(*args, **kw)
     second, _ = rk.replay_persistent(*args, **kw)
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("n_arrays", [2, 8])
+@pytest.mark.parametrize("op", sorted(pk.OPS))
+def test_op_chain_kernel_matches_plain_version(cuda, op, n_arrays):
+    """Every probe op at n = 64*128, 16 iterations and its own count: the
+    uint32 ops bitwise (int64 words and int32 bits), mul-add, add and select
+    bitwise, the fused multiply-add within 1 ulp, sin, sqrt and 1/sqrt
+    within 2 ulp."""
+    rng, spec = np.random.default_rng(5), pk.OPS[op]
+    limit = {"fma": 1, "sin": 2, "sqrt": 2, "rsqrt": 2}.get(op, 0)
+    for iters in (16, spec.iters):
+        before = pk.op_chain.launches
+        if spec.words:
+            xs = torch.from_numpy(rng.integers(0, 2**32, (n_arrays, 8192), dtype=np.int64)).to(cuda)
+            ref = pk.op_chain_reference(xs, op, iters)
+            assert torch.equal(pk.op_chain(xs, op, iters), ref)
+            bits = pk.op_chain(rng_ops.int32_bits(xs), op, iters)
+            assert bits.dtype == torch.int32 and torch.equal(rng_ops.words_from_int32(bits), ref)
+            assert pk.op_chain.launches == before + 2
+        else:
+            xs = torch.from_numpy(rng.uniform(0.25, 1.5, (n_arrays, 8192)).astype(np.float32))
+            xs = xs.to(cuda)
+            got, ref = pk.op_chain(xs, op, iters), pk.op_chain_reference(xs, op, iters)
+            ulps = (got.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max()
+            assert bool(torch.isfinite(got).all()) and int(ulps) <= limit
+            assert pk.op_chain.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 3, 3])
+def test_stream_kernel_matches_plain_version(cuda, n):
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(n, dtype=np.float32)).to(cuda)
+    before = pk.stream_scale.launches
+    assert torch.equal(pk.stream_scale(x), pk.stream_scale_reference(x))
+    assert pk.stream_scale.launches == before + 1
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    xs = torch.ones((8, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.op_chain(xs.T.contiguous().T, "add", 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.stream_scale(xs[:, ::2])
+    with pytest.raises(ValueError, match="aligned"):
+        pk.stream_scale(torch.ones(65, device=cuda)[1:])

@@ -126,7 +126,8 @@ def test_cuda_scene_without_kernel_support_raises(monkeypatch, case):
 
 def test_cli_invert_prints_json_lines(capsys):
     assert cli.main(["invert", "--scene", "box", "--width", "16", "--height", "12", "--spp", "2",
-                     "--max-depth", "12", "--steps", "2", "--cell-chunk", "500"]) == 0
+                     "--max-depth", "12", "--steps", "2", "--cell-chunk", "500", "--device",
+                     "cpu"]) == 0
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [r["step"] for r in lines] == [0, 1]
     for r in lines:

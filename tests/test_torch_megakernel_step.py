@@ -189,7 +189,7 @@ def test_lane_state_from_arrays_layout():
 def test_cli_bench_prints_one_report(capsys):
     assert cli.main(["bench", "--scene", "box", "--width", "8", "--height", "6",
                      "--total-spp", "4", "--max-depth", "8", "--repeats", "1",
-                     "--lanes", "64"]) == 0
+                     "--lanes", "64", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     rep = json.loads(lines[0])
@@ -201,4 +201,4 @@ def test_cli_bench_prints_one_report(capsys):
 @pytest.mark.parametrize("flag", [["--suite"], ["--scaling"], ["--ring", "8"]])
 def test_cli_bench_unported_options_raise(flag):
     with pytest.raises(SystemExit, match="not ported.*Queue 1 items 9 and 11"):
-        cli.main(["bench", "--width", "8", "--height", "6", *flag])
+        cli.main(["bench", "--width", "8", "--height", "6", "--device", "cpu", *flag])

@@ -88,7 +88,8 @@ def test_sample_ranges_and_cell_chunks_add_up():
 def test_cli_render_writes_png(tmp_path):
     out = tmp_path / "box.png"
     assert cli.main(["render", "--scene", "box", "--width", "16", "--height", "12",
-                     "--total-spp", "4", "--max-depth", "6", "-o", str(out)]) == 0
+                     "--total-spp", "4", "--max-depth", "6", "--device", "cpu",
+                     "-o", str(out)]) == 0
     data = out.read_bytes()
     assert data[:8] == b"\x89PNG\r\n\x1a\n" and b"IHDR" in data[:16]
 
