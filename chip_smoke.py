@@ -50,20 +50,27 @@ script exits non-zero.
 
 8. step_vs_plain and step_vs_persistent: for every registered scene at
    64x48, 2 spp, the per-step kernel's per-item radiance (the per-step
-   loop, ``ops/wavefront.drive_items``) against the plain step on the card
+   loop, ``ops/wavefront.drive_items``: batches of launches of a few steps
+   each, replayed as one CUDA graph) against the plain step on the card
    by tier 1 (max_depth 8) and tier 2 (max_depth 100), and against the
    whole-render kernel bitwise, with equal segment counts.
 9. step_regen: per-step loops of 65,536 lanes over more items, so lanes
    start several items, at a nonzero cell_start and sample_start (one also
    through ``render_cells_range``, one over a span past the last cell):
    bitwise equal to the whole-render kernel, tier 1 against the plain step.
+   Then step_steps: on the first of those spans, one launch of S steps (S =
+   2, 8, 32) against S launches of one step, launch after launch to past
+   the drain: the lane state, ``out`` and every count bitwise.
 10. bench_path: the per-step slice at full size, ``cli bench --scene
    box_mirror --total-spp 32`` (on the card by default; 1024x768, max_depth 100, a
    pool of 524,288 lanes; one warm-up and 3 timed runs): its RenderReport,
-   the per-step kernel's launches, the kernel's own time (device rows of
-   torch.profiler over one render) per render and per step, the card's
-   idle share in that window, the lane-state bytes it moves and their
-   rate; then all 25,165,824 items held to the whole-render
+   the per-step kernel's launches, the steps a launch runs, the kernel's
+   own time (device rows of torch.profiler over one graph-driven render)
+   per render and per launch, the card's idle share in that window (the
+   profiler slows the host) and against ``cli bench``'s untraced time, the
+   lane-state bytes the design moves (counted in a launch-by-launch render,
+   which must equal the graph-driven one bitwise) and their floor at the
+   card's memory rate; then all 25,165,824 items held to the whole-render
    kernel bitwise and to the plain step (run once, timed) by tier 1.
 11. wavefront_route: a float64 scene and tent-jitter scenes on the card
    through integrator 'auto': ``resolve_integrator`` gives 'wavefront', no
@@ -77,8 +84,8 @@ script exits non-zero.
    and int32 bits), mul-add, add and select bitwise, the fused
    multiply-add within 1 ulp, sin, sqrt and 1/sqrt within 2 ulp, with the
    largest ulp distance seen and each plain version's time at full width.
-   The stream kernel at 2^26 and at 2^20 + 3 elements, bitwise.  Both
-   launch counts checked.
+   The stream kernel at 2^26, at 2^20 + 3, below one tile (1,000) and
+   below one float4 (3 elements), bitwise.  Both launch counts checked.
 13. probe_path: the machine-constant probe, ``scripts/torch_perf_probe.py``'s
    ``probe()`` in process: its constants, the SM clock under load, each
    rate's share of the card's published peak (an application charged the
@@ -90,8 +97,11 @@ Then a ``{"kernels": [...]}`` line (five kernels, each with its launches on
 its path, its time, its plain version's, its bound, the least time the card
 could take for the same work at its published peaks, which side binds, the
 probe-model time of the render kernels, and a library call's time where one
-PyTorch call computes the same), the nvidia-smi line, and last ``{"ok":
-true, "device": {...}}``.  Imports nothing of JAX.
+PyTorch call computes the same; the per-step kernel's bound is the
+render's, equal to the whole-render kernel's, with the floor of the
+lane-state traffic its design moves beside it as ``state_floor_ms``), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -221,6 +231,7 @@ def main() -> int:
     from cpu_path_tracing_tpu_torch.utils import profiling, roofline
 
     tpp = load_script("torch_perf_probe")
+    tcm = load_script("torch_chip_measure")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -609,6 +620,37 @@ def main() -> int:
         emit(rec)
         check(ok, f"regenerating per-step loop ({how})")
 
+    # One launch of S steps against S launches of one, on the first span.
+    cell_start, n_cells, sample_start = 1_000_003, 150_001, 5
+    kw = dict(cfg=cfg, n_cells=n_cells, n_items=2 * n_cells, lanes=lanes, ior=scene.ior)
+    singles = -(-2 * n_cells // lanes) * cfg.max_depth + 1  # the loop's cap
+    whole, whole_st = mk.persistent_render(table, cam, (cell_start, sample_start), cfg=cfg,
+                                           n_cells=n_cells, n_items=2 * n_cells, ior=scene.ior)
+    for steps in (2, 8, 32):
+        n_launches = -(-singles // steps)
+        sa, sb = mk.init_lane_state(lanes, dev), mk.init_lane_state(lanes, dev)
+        oa, ob = (torch.zeros((3, 2 * n_cells), device=dev) for _ in range(2))
+        ga, gb = (torch.zeros(n_launches * steps, dtype=torch.int64, device=dev)
+                  for _ in range(2))
+        state_ok = True
+        for n in range(n_launches):
+            mk.megakernel_step(sa, table, cam, (cell_start, sample_start), out=oa, seg=ga,
+                               seg_slot=n * steps, steps=steps, **kw)
+            for j in range(steps):
+                mk.megakernel_step(sb, table, cam, (cell_start, sample_start), out=ob, seg=gb,
+                                   seg_slot=n * steps + j, **kw)
+            state_ok = state_ok and mk.lane_state_equal(sa, sb)
+        rec = {"phase": "step_steps", "steps": steps, "launches": n_launches,
+               "state_bitwise": state_ok, "out_bitwise": bool(torch.equal(oa, ob)),
+               "seg_bitwise": bool(torch.equal(ga, gb)), "segments": int(ga.sum()),
+               "iters": int((ga > 0).sum()), "drained": int(sa.i[4].sum()) == 0,
+               "out_vs_persistent": bool(torch.equal(oa, whole))}
+        rec["ok"] = (state_ok and rec["out_bitwise"] and rec["seg_bitwise"] and rec["drained"]
+                     and rec["out_vs_persistent"]
+                     and rec["segments"] == int(whole_st["segments"]))
+        emit(rec)
+        check(rec["ok"], f"one launch of {steps} steps against {steps} launches of one")
+
     # ---- 10. the per-step slice at full size: cli bench ----
     import contextlib
     import io
@@ -627,8 +669,9 @@ def main() -> int:
           "cli bench launched another kernel than the per-step kernel")
     report = json.loads(buf.getvalue().strip().splitlines()[-1])
     check(report["device"] == kind, "cli bench did not run on the card by default")
-    check(k4_launches >= 4 * report["iters"] > 0,
-          "cli bench did not launch the per-step kernel at least once per iteration")
+    S = wavefront.STEPS_PER_LAUNCH
+    check(k4_launches * S >= 4 * report["iters"] > 0,
+          "cli bench did not launch the per-step kernel for every iteration")
 
     # The kernel's own time: device rows of torch.profiler over one render
     # (CUDA events around each launch would also count the card's waits for
@@ -644,20 +687,23 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
     loop_ms = start.elapsed_time(end)
-    steps = mk.megakernel_step.launches - before
+    launches_in_render = mk.megakernel_step.launches - before
     by_kernel = profiling.device_time_by_kernel(prof)
     device_ms = sum(ms for ms, _ in by_kernel.values())
     k4_ms = sum(ms for key, (ms, _) in by_kernel.items() if "megakernel_step_kernel" in key)
     k4_count = sum(n for key, (_, n) in by_kernel.items() if "megakernel_step_kernel" in key)
-    check(k4_count == steps and k4_ms > 0, "the profiler did not see every per-step launch")
+    check(k4_count == launches_in_render and k4_ms > 0,
+          "the profiler did not see every per-step launch")
     n_items = cfg.spp * cfg.num_cells
     B = st["lanes"]
-    # Lane-state traffic of the render, from the kernel's loads and stores:
-    # every lane reads gen and alive (8 B) each step; a segment that is not
-    # its path's first reads 12 floats and 3 ints (60 B), one that is not its
-    # path's last writes them and alive (64 B); each item writes gen (4 B)
-    # when it starts and its radiance and alive (16 B) when it ends.
-    state_bytes = (8 * B * steps + 124 * (st["segments"] - n_items) + 20 * n_items)
+    # The lane-state traffic of the design, counted in a launch-by-launch
+    # render of the same span (roofline.lane_state_bytes), which must give
+    # what the graph-driven loop gave.
+    traffic = tcm.step_traffic(scene, cfg, ids, 0, cfg.spp)
+    state_bytes = traffic["state_bytes"]
+    one_by_one = bool(torch.equal(got, traffic["out"])) and traffic["stats"] == st
+    check(traffic["launches"] == launches_in_render,
+          "the launch-by-launch render made another number of launches")
     table, cam = mk.pack_scene(scene), mk.pack_camera(scene)
     kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=n_items, ior=scene.ior)
     whole_ms, (whole, whole_st) = cuda_time_ms(lambda: mk.persistent_render(table, cam, (0, 0),
@@ -672,32 +718,45 @@ def main() -> int:
     g, r = got.cpu().numpy(), ref.cpu().numpy()
     t1 = tier1(g, r)
     step_err = max(step_err, float(np.abs(g - r).max()))
+    state_floor_ms = state_bytes / roofline.PEAK_BYTES_PER_S * 1e3
     rec = {"phase": "bench_path", "command": "python -m cpu_path_tracing_tpu_torch.cli "
            + " ".join(argv), "report": report, "k4_launches": k4_launches,
+           "steps_per_launch": S, "launches_per_graph": wavefront.STEP_BATCH,
            "iters": st["iters"], "lanes": B, "segments": st["segments"],
            "mrays_per_s": report["mrays_per_s"], "occupancy": report["occupancy"],
-           "k4_kernel_ms": k4_ms, "k4_launches_in_render": steps,
-           "k4_ms_per_step": k4_ms / steps, "profiled_loop_ms": loop_ms,
+           "cli_bench_ms": report["seconds"] * 1e3,
+           "k4_kernel_ms": k4_ms, "k4_launches_in_render": launches_in_render,
+           "k4_ms_per_launch": k4_ms / launches_in_render, "profiled_loop_ms": loop_ms,
            "profiled_device_ms": device_ms, "profiled_idle_share": 1 - device_ms / loop_ms,
-           "state_bytes": state_bytes, "state_bytes_per_step": state_bytes / steps,
-           "state_gb_per_s": state_bytes / (k4_ms / 1e3) / 1e9,
-           "dense_state_bytes_per_step": 2 * 17 * 4 * B, "k2_ms": whole_ms,
+           "bench_idle_share": 1 - k4_ms / (report["seconds"] * 1e3),
+           "state_bytes": state_bytes, "state_gb": state_bytes / 1e9,
+           "state_bytes_per_launch": state_bytes / launches_in_render,
+           "state_floor_ms": state_floor_ms,
+           "lanes_carried_in": traffic["carried_in"], "lanes_carried_out": traffic["carried_out"],
+           "launch_by_launch_bitwise": one_by_one, "k2_ms": whole_ms,
            "k2_segments": int(whole_st["segments"]), "bitwise_vs_persistent": bitwise,
            "plain_step_ms": plain_step_ms, "plain_segments": ref_st["segments"],
            "max_abs_err_vs_plain": float(np.abs(g - r).max()), **t1}
-    rec["ok"] = (bitwise and t1["ok"] and st["segments"] == int(whole_st["segments"])
+    rec["ok"] = (bitwise and one_by_one and t1["ok"]
+                 and st["segments"] == int(whole_st["segments"])
                  == ref_st["segments"] == report["segments"] and report["lanes"] == 1 << 19)
     emit(rec)
     check(rec["ok"], "the per-step slice at full size")
+    # One render: its bound is the work's, whatever implements it, so the
+    # whole-render kernel's for the same paths (the scene read and each
+    # item's radiance written once, against the operations of these
+    # segments).  What the per-step design adds, the lane state crossing
+    # device memory once per launch, stands beside it as its own floor.
+    k4_ops = roofline.render_ops(scene.num_spheres, st["segments"], n_items)
+    k4_bound, k4_by = roofline.bound_ms(12 * n_items + 4 * (table.numel() + cam.numel()),
+                                        k4_ops.issues())
     k4 = {"name": "megakernel_step", "route": "cuda", "source": f"{PKG}/csrc/megakernel_step.cu",
           "replaces": "cpu_path_tracing_tpu/ops/pallas/megakernel.py:518",
           "launches": k4_launches, "max_abs_err": step_err, "ms": k4_ms,
-          "plain_ms": plain_step_ms, "library_ms": None}
-    # One render: the lane-state and output bytes counted above against the
-    # whole-render kernel's operations on the same paths.
-    k4_ops = roofline.render_ops(scene.num_spheres, st["segments"], n_items)
-    k4["bound_ms"], k4["bound_by"] = roofline.bound_ms(
-        state_bytes + 4 * (table.numel() + cam.numel()), k4_ops.issues())
+          "plain_ms": plain_step_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+          "library_ms": None, "state_floor_ms": state_floor_ms,
+          "state_gb": state_bytes / 1e9, "steps_per_launch": S,
+          "launches_per_render": launches_in_render}
 
     # ---- 11. float64 and tent jitter on the card: the plain wavefront loop ----
     for name, dtype, jitter in (("box_mirror", torch.float64, "uniform"),
@@ -767,15 +826,18 @@ def main() -> int:
               "ulp_limit": ulp_limit.get(op, 0), "plain_ms_full": k5_plain_ms[op], "ok": ok})
         check(ok, f"op_chain({op}) against its plain version")
     stream_ok, k6_err = True, 0.0
-    for n in (tpp.STREAM_N, (1 << 20) + 3):
+    stream_sizes = (tpp.STREAM_N, (1 << 20) + 3, 1000, 3)
+    for n in stream_sizes:
         x = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
         got, ref = pk.stream_scale(x), pk.stream_scale_reference(x)
         stream_ok = stream_ok and torch.equal(got, ref)
         k6_err = max(k6_err, float((got - ref).abs().max()))
-    counts_ok = (pk.op_chain.launches == expected_launches and pk.stream_scale.launches == 2)
+    counts_ok = (pk.op_chain.launches == expected_launches
+                 and pk.stream_scale.launches == len(stream_sizes))
     emit({"phase": "probe_vs_plain", "kernel": "stream_scale",
-          "sizes": [tpp.STREAM_N, (1 << 20) + 3], "bitwise": stream_ok,
-          "op_chain_launches": pk.op_chain.launches, "stream_scale_launches": 2,
+          "sizes": list(stream_sizes), "bitwise": stream_ok,
+          "op_chain_launches": pk.op_chain.launches,
+          "stream_scale_launches": pk.stream_scale.launches,
           "ok": stream_ok and counts_ok})
     check(stream_ok and counts_ok, "stream_scale against its plain version, or a launch count")
 

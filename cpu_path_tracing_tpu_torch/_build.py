@@ -117,7 +117,7 @@ def load(flags: tuple[str, ...] = FLAGS) -> ctypes.CDLL:
     lib.pt_persistent_render.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), vp]
     lib.pt_persistent_render.restype = ctypes.c_int
     lib.pt_megakernel_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
-                                       ctypes.c_longlong, vp]
+                                       ctypes.c_int, vp]
     lib.pt_megakernel_step.restype = ctypes.c_int
     lib.pt_replay_grid.argtypes = [ctypes.c_int, ctypes.c_longlong,
                                    ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]

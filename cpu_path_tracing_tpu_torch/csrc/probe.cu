@@ -18,11 +18,21 @@
 // design: per launch the kernel moves (NA + 1) * 4 bytes per element.
 //
 // probe_stream_kernel computes y = scale * x.  Bound: device-memory bytes,
-// 4 read and 4 written per element.  A grid-stride loop over float4 (16
-// bytes a thread, neighbouring threads on neighbouring addresses), four
-// independent loads in flight per thread, and a scalar tail for n % 4.
-// The TPU kernel's blocks of 2^19 elements staged through on-chip memory
-// have no counterpart: a streaming pass gains nothing from shared memory.
+// 4 read and 4 written per element, and on this card the way the addresses
+// reach the memory system decides how near the peak a pass comes.  One
+// float4 a thread (16 bytes, neighbouring threads on neighbouring
+// addresses), one contiguous 8 KB tile of 512 threads a block and as many
+// blocks as tiles, the shape PyTorch's elementwise kernels have: the block
+// scheduler then walks the array front to back, and the reads and writes in
+// flight at any time lie in one region.  The loads and stores carry the
+// streaming hint (ld.global.cs / st.global.cs): every byte is used once.
+// The last block masks the ragged end and moves the n % 4 scalars.  The TPU
+// kernel's blocks of 2^19 elements staged through on-chip memory have no
+// counterpart: measured on an H100 (PERF.md, Findings; the designs are in
+// scripts/torch_stream_designs.cu), a persistent grid, whether it strides
+// the array, walks neighbouring tiles or feeds a ring of shared-memory
+// stages with TMA bulk copies, is 5-9% slower than this, more float4 a
+// thread 1-2%, and the same tile without the hint 3%.
 
 #include <cuda_runtime.h>
 
@@ -101,37 +111,25 @@ probe_op_chain_kernel(const Elem<OP>* __restrict__ xs, Elem<OP>* __restrict__ ou
   out[i] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kStreamThreads = 512;  // float4 in a block's tile
+
+__global__ void __launch_bounds__(kStreamThreads)
 probe_stream_kernel(const float* __restrict__ x, float* __restrict__ y, const long long n,
                     const float scale) {
   const long long n4 = n / 4;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* y4 = reinterpret_cast<float4*>(y);
-  long long i = tid;
-  for (; i + 3 * stride < n4; i += 4 * stride) {
-    float4 v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = x4[i + u * stride];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      v[u].x *= scale;
-      v[u].y *= scale;
-      v[u].z *= scale;
-      v[u].w *= scale;
-      y4[i + u * stride] = v[u];
-    }
-  }
-  for (; i < n4; i += stride) {
-    float4 v = x4[i];
+  const long long i = static_cast<long long>(blockIdx.x) * kStreamThreads + threadIdx.x;
+  if (i < n4) {
+    float4 v = __ldcs(reinterpret_cast<const float4*>(x) + i);
     v.x *= scale;
     v.y *= scale;
     v.z *= scale;
     v.w *= scale;
-    y4[i] = v;
+    __stcs(reinterpret_cast<float4*>(y) + i, v);
   }
-  for (long long j = 4 * n4 + tid; j < n; j += stride) y[j] = x[j] * scale;
+  if (blockIdx.x == gridDim.x - 1) {
+    const long long j = 4 * n4 + threadIdx.x;
+    if (j < n) y[j] = x[j] * scale;
+  }
 }
 
 template <int OP, int NA>
@@ -183,19 +181,12 @@ int pt_probe_op_chain(int op, int n_arrays, const void* xs, void* out, long long
 }
 
 // Launches y = scale * x over n float32 on ``stream``; x and y are 16-byte
-// aligned.  The grid is 8 blocks per SM, the most that are resident.
+// aligned.  One block per tile of kStreamThreads float4, the last one ragged.
 // Returns cudaGetLastError() after the launch.
 int pt_probe_stream(const float* x, float* y, long long n, float scale, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long blocks = static_cast<long long>(sms) * (2048 / kThreads);
-  const long long needed = (n / 4 + kThreads - 1) / kThreads;
-  if (blocks > needed) blocks = needed;
-  if (blocks < 1) blocks = 1;
-  probe_stream_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+  const long long blocks = n < 4 ? 1 : (n / 4 + kStreamThreads - 1) / kStreamThreads;
+  if (n < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  probe_stream_kernel<<<static_cast<unsigned int>(blocks), kStreamThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(x, y, n, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,14 +29,17 @@ package, verbatim: an [N,17] sphere table and a [20] camera vector.
 ``megakernel_step`` replaces the TPU kernel
 ``cpu_path_tracing_tpu/ops/pallas/megakernel.py::megakernel_step`` (one
 wavefront iteration per ``pallas_call``) with ``csrc/megakernel_step.cu``:
-one launch advances every lane of a pool of B lanes by one bounce, the
-lane state (``LaneState``) living in device memory between launches.  It
-is bound by that state traffic, ~17 words read and written per lane per
-step, where the whole-render kernel keeps the path in registers.  The
-design keeps the traffic to what a lane needs: an idle lane with nothing
-left to start reads two words and writes none.  Its plain version,
-``megakernel_step_reference``, is also the step of the plain wavefront loop
-(``ops/wavefront.render_wavefront``) in any dtype and jitter.
+one launch advances every lane of a pool of B lanes by ``steps`` bounces,
+the lane state (``LaneState``) living in device memory between launches.
+What it adds to the whole-render kernel's arithmetic is that state
+traffic, 15 words read and written per live lane per launch, and the
+launches themselves.  The design keeps both small: the path stays in
+registers for the ``steps`` bounces of a launch, an idle lane with nothing
+left to start reads two words and writes none, and a launch does not
+depend on which launch it is, so ``megakernel_step_batch`` captures a batch
+of launches in a CUDA graph once and the host replays it.  Its plain
+version, ``megakernel_step_reference``, is also the step of the plain
+wavefront loop (``ops/wavefront.render_wavefront``) in any dtype and jitter.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ CAM_LEN = 20
 # Shared memory the kernel may use without an opt-in: table + camera.
 SMEM_BUDGET = 48 * 1024
 MAX_SPHERES = (SMEM_BUDGET // 4 - CAM_LEN) // TABLE_COLS
+# Steps one launch of the per-step kernel may run (a bit per step in its live mask).
+MAX_STEPS = 32
 # Items per batch of the plain version: bounds its memory on a full image.
 REFERENCE_CHUNK = 1 << 22
 
@@ -291,6 +296,18 @@ def init_lane_state(lanes: int, device, dtype=torch.float32) -> LaneState:
     return LaneState(f, i)
 
 
+def lane_state_equal(a: LaneState, b: LaneState) -> bool:
+    """Whether two pools hold the same state: ``gen`` and ``alive`` of every
+    lane and the path of every live lane, bitwise.  An idle lane's path
+    rows are read by nothing (they hold what a step last stored there,
+    which depends on how many steps a launch ran), so they do not count."""
+    if not torch.equal(a.i[_GEN:], b.i[_GEN:]):
+        return False
+    live = a.i[_ALIVE] != 0
+    return torch.equal(a.f[:, live], b.f[:, live]) and torch.equal(a.i[:_GEN, live],
+                                                                   b.i[:_GEN, live])
+
+
 def lane_state_from_arrays(d) -> LaneState:
     """The JAX package's per-step state (its ``STATE_NAMES`` dict of
     [B/128, 128] arrays, as NumPy) in the port's layout, on the CPU.  The
@@ -304,10 +321,12 @@ def lane_state_from_arrays(d) -> LaneState:
 
 
 def _check_step(state: LaneState, table, *, n_cells: int, n_items: int, lanes: int, out,
-                seg, seg_slot: int) -> None:
+                seg, seg_slot: int, steps: int) -> None:
     if n_cells < 1 or n_items < 1 or lanes < 1:
         raise ValueError(f"bad item range: n_cells={n_cells}, n_items={n_items}, "
                          f"lanes={lanes}")
+    if int(steps) != steps or not 1 <= steps <= MAX_STEPS:
+        raise ValueError(f"steps must be an integer in 1..{MAX_STEPS}, got {steps!r}")
     if (tuple(state.f.shape) != (len(LANE_F), lanes)
             or tuple(state.i.shape) != (len(LANE_I), lanes)
             or state.i.dtype != torch.int32 or state.f.dtype != table.dtype):
@@ -315,34 +334,17 @@ def _check_step(state: LaneState, table, *, n_cells: int, n_items: int, lanes: i
                          f"i [{len(LANE_I)}, {lanes}] int32 (init_lane_state)")
     if tuple(out.shape) != (3, n_items) or out.dtype != table.dtype:
         raise ValueError(f"out must be [3, {n_items}] in the table's dtype")
-    if seg.dim() != 1 or seg.dtype != torch.int64 or not 0 <= seg_slot < seg.shape[0]:
-        raise ValueError(f"seg must be a 1-d int64 tensor holding slot {seg_slot}")
+    if (seg.dim() != 1 or seg.dtype != torch.int64
+            or not 0 <= seg_slot <= seg.shape[0] - steps):
+        raise ValueError(f"seg must be a 1-d int64 tensor holding slots {seg_slot}.."
+                         f"{seg_slot + steps - 1}")
     if any(t.device != table.device for t in (state.f, state.i, out, seg)):
         raise ValueError("state, out and seg must be on the table's device")
 
 
-def megakernel_step_reference(state: LaneState, table, cam, dyn, *, cfg: RenderConfig,
-                              n_cells: int, n_items: int, lanes: int, out, seg,
-                              seg_slot: int, ior: float = 2.0, hist=None) -> None:
-    """Plain PyTorch version of ``megakernel_step``: the same arguments and
-    in-place updates, in the table's dtype (float32 or float64) and with
-    either jitter.  One wavefront iteration of every lane:
-
-    1. regeneration (``make_step_math``, ``megakernel.py:171-236``, without
-       the ring's ``g_flush + K`` gate): an idle lane with ``gen + 1 <
-       n_gens`` advances ``gen`` and, when ``item = gen * lanes + lane <
-       n_items``, starts that item's camera path;
-    2. one ``ops/integrator.bounce_step`` of every live lane with its own
-       ``rng.bounce_uniforms(k0, k1, depth)``, then the depth limit;
-    3. retirement: a finished path's radiance goes to ``out[:, item]``.
-
-    ``seg[seg_slot]`` gains the lanes alive after regeneration (the step's
-    path segments).  With ``hist`` ([max_depth] int64), ``hist[d - 1]``
-    gains the paths that finished after d segments."""
-    _check(table, cam, dyn)
-    _check_step(state, table, n_cells=n_cells, n_items=n_items, lanes=lanes, out=out,
-                seg=seg, seg_slot=seg_slot)
-    spheres, camera = _unpack(table, cam, ior)
+def _one_step_reference(state: LaneState, spheres, camera, table, dyn, *, cfg: RenderConfig,
+                        n_cells: int, n_items: int, lanes: int, out, seg, seg_slot: int,
+                        hist) -> None:
     f, iv = state.f, state.i
     n_gens = -(-n_items // lanes)
     want = iv[_GEN].long() + 1
@@ -382,10 +384,79 @@ def megakernel_step_reference(state: LaneState, table, cam, dyn, *, cfg: RenderC
         hist += torch.bincount(depth[done] - 1, minlength=cfg.max_depth)[:cfg.max_depth]
 
 
+def megakernel_step_reference(state: LaneState, table, cam, dyn, *, cfg: RenderConfig,
+                              n_cells: int, n_items: int, lanes: int, out, seg,
+                              seg_slot: int, steps: int = 1, ior: float = 2.0,
+                              hist=None) -> None:
+    """Plain PyTorch version of ``megakernel_step``: the same arguments and
+    in-place updates, in the table's dtype (float32 or float64) and with
+    either jitter.  ``steps`` wavefront iterations of every lane, each:
+
+    1. regeneration (``make_step_math``, ``megakernel.py:171-236``, without
+       the ring's ``g_flush + K`` gate): an idle lane with ``gen + 1 <
+       n_gens`` advances ``gen`` and, when ``item = gen * lanes + lane <
+       n_items``, starts that item's camera path;
+    2. one ``ops/integrator.bounce_step`` of every live lane with its own
+       ``rng.bounce_uniforms(k0, k1, depth)``, then the depth limit;
+    3. retirement: a finished path's radiance goes to ``out[:, item]``.
+
+    ``seg[seg_slot + j]`` gains the lanes alive after regeneration in
+    iteration j (its path segments).  With ``hist`` ([max_depth] int64),
+    ``hist[d - 1]`` gains the paths that finished after d segments.  This
+    version also stores the path of a lane that went idle; the kernel does
+    not (``lane_state_equal``)."""
+    _check(table, cam, dyn)
+    _check_step(state, table, n_cells=n_cells, n_items=n_items, lanes=lanes, out=out,
+                seg=seg, seg_slot=seg_slot, steps=steps)
+    spheres, camera = _unpack(table, cam, ior)
+    for j in range(steps):
+        _one_step_reference(state, spheres, camera, table, dyn, cfg=cfg, n_cells=n_cells,
+                            n_items=n_items, lanes=lanes, out=out, seg=seg,
+                            seg_slot=seg_slot + j, hist=hist)
+
+
+def _step_launcher(state: LaneState, table, cam, dyn, *, cfg: RenderConfig, n_cells: int,
+                   n_items: int, lanes: int, out, seg, steps: int, ior: float):
+    """Check the arguments of a launch of the per-step kernel once and return
+    ``launch(seg_slot)``, which enqueues it on the current stream of the
+    table's device (the caller has made that device current) and raises
+    RuntimeError if the launch is refused.  The closure keeps the tensors
+    and the parameter block it points into alive, and reads that block on
+    the host at each launch."""
+    if table.device.type != "cuda":
+        raise ValueError(f"megakernel_step runs on CUDA or the CPU, not {table.device}")
+    check_kernel_config(cfg, table.dtype)
+    _check_step(state, table, n_cells=n_cells, n_items=n_items, lanes=lanes, out=out,
+                seg=seg, seg_slot=0, steps=steps)
+    if not all(t.is_contiguous() for t in (table, cam, state.f, state.i, out, seg)):
+        raise ValueError("table, cam, state, out and seg must be contiguous")
+    n = table.shape[0]
+    if not 1 <= n <= MAX_SPHERES:
+        raise ValueError(f"the CUDA kernel holds 1..{MAX_SPHERES} spheres in shared "
+                         f"memory ({SMEM_BUDGET} bytes), got {n}")
+    lib = _build.load()
+    params = launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
+
+    def launch(seg_slot: int) -> None:
+        if not 0 <= seg_slot <= seg.shape[0] - steps:
+            raise ValueError(f"seg holds no slots {seg_slot}..{seg_slot + steps - 1}")
+        # The current stream, asked at each launch: under a graph capture it
+        # is the capturing one.
+        err = lib.pt_megakernel_step(table.data_ptr(), cam.data_ptr(), state.f.data_ptr(),
+                                     state.i.data_ptr(), out.data_ptr(),
+                                     seg.data_ptr() + 8 * seg_slot, ctypes.addressof(params),
+                                     lanes, steps, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"megakernel_step launch failed: "
+                               f"{lib.pt_error_string(err).decode()} ({err})")
+
+    return launch
+
+
 def megakernel_step(state: LaneState, table, cam, dyn, *, cfg: RenderConfig, n_cells: int,
-                    n_items: int, lanes: int, out, seg, seg_slot: int,
+                    n_items: int, lanes: int, out, seg, seg_slot: int, steps: int = 1,
                     ior: float = 2.0) -> None:
-    """One wavefront iteration of a pool of ``lanes`` lanes, in place.
+    """``steps`` wavefront iterations of a pool of ``lanes`` lanes, in place.
 
     Args:
       state: ``LaneState`` (``init_lane_state`` before the first step);
@@ -393,42 +464,86 @@ def megakernel_step(state: LaneState, table, cam, dyn, *, cfg: RenderConfig, n_c
         (cell_start, sample_start) as ints;
       out: [3, n_items], where a path that finishes writes its radiance at
         its item, item = sample * n_cells + c;
-      seg: int64 [S]; ``seg[seg_slot]`` gains the step's path segments.
+      seg: int64 [S]; ``seg[seg_slot + j]`` gains iteration j's path
+        segments, j < steps <= ``MAX_STEPS``.
 
-    On CUDA tensors this launches the per-step kernel (float32,
-    contiguous, N <= MAX_SPHERES, uniform jitter) or raises.  On CPU
-    tensors it runs the plain version.  ``megakernel_step.launches`` counts
-    the launches.
+    One call is ``steps`` calls of one step, but for the path rows of idle
+    lanes (``lane_state_equal``).  On CUDA tensors this launches the
+    per-step kernel once (float32, contiguous, N <= MAX_SPHERES, uniform
+    jitter) or raises.  On CPU tensors it runs the plain version.
+    ``megakernel_step.launches`` counts the launches.
     """
     _check(table, cam, dyn)
     if table.device.type == "cpu":
         megakernel_step_reference(state, table, cam, dyn, cfg=cfg, n_cells=n_cells,
                                   n_items=n_items, lanes=lanes, out=out, seg=seg,
-                                  seg_slot=seg_slot, ior=ior)
+                                  seg_slot=seg_slot, steps=steps, ior=ior)
         return
-    if table.device.type != "cuda":
-        raise ValueError(f"megakernel_step runs on CUDA or the CPU, not {table.device}")
-    check_kernel_config(cfg, table.dtype)
-    _check_step(state, table, n_cells=n_cells, n_items=n_items, lanes=lanes, out=out,
-                seg=seg, seg_slot=seg_slot)
-    if not all(t.is_contiguous() for t in (table, cam, state.f, state.i, out, seg)):
-        raise ValueError("table, cam, state, out and seg must be contiguous")
-    n = table.shape[0]
-    if not 1 <= n <= MAX_SPHERES:
-        raise ValueError(f"the CUDA kernel holds 1..{MAX_SPHERES} spheres in shared "
-                         f"memory ({SMEM_BUDGET} bytes), got {n}")
-
-    lib = _build.load()
-    params = launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
+    launch = _step_launcher(state, table, cam, dyn, cfg=cfg, n_cells=n_cells, n_items=n_items,
+                            lanes=lanes, out=out, seg=seg, steps=steps, ior=ior)
     with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pt_megakernel_step(table.data_ptr(), cam.data_ptr(), state.f.data_ptr(),
-                                     state.i.data_ptr(), out.data_ptr(), seg.data_ptr(),
-                                     ctypes.addressof(params), lanes, seg_slot, stream)
-    if err != 0:
-        raise RuntimeError(f"megakernel_step launch failed: "
-                           f"{lib.pt_error_string(err).decode()} ({err})")
+        launch(seg_slot)
     megakernel_step.launches += 1
 
 
 megakernel_step.launches = 0
+
+
+def megakernel_step_batch(state: LaneState, table, cam, dyn, *, batch: int, cfg: RenderConfig,
+                          n_cells: int, n_items: int, lanes: int, out, seg, steps: int = 1,
+                          ior: float = 2.0):
+    """A batch of ``batch`` launches of ``megakernel_step`` as one CUDA graph,
+    for the card only.  A batch zeroes ``seg`` (int64 [batch * steps]) and
+    launches the kernel ``batch`` times, launch b counting into
+    ``seg[b * steps:(b + 1) * steps]``.
+
+    The call checks the arguments once, runs the first batch launch by
+    launch (which also makes the library and the kernel resident before the
+    capture), captures the same launches on a side stream, and returns
+    ``replay()``, which enqueues one more batch on the current stream.
+    Nothing in a batch depends on how many ran before it, which is what
+    lets one captured graph serve the whole render.  A failed launch,
+    capture or replay raises.  ``megakernel_step.launches`` gains ``batch``
+    per batch that runs (none for the capture, which launches nothing).
+
+    The capture uses ``torch.cuda.CUDAGraph`` directly: the
+    ``torch.cuda.graph`` context first synchronises and empties the caching
+    allocator, which a render pays for on every call.
+    """
+    _check(table, cam, dyn)
+    if table.device.type != "cuda":
+        raise ValueError(f"a captured batch is for a CUDA device, not {table.device}: on the "
+                         "CPU call megakernel_step launch by launch")
+    if int(batch) != batch or batch < 1:
+        raise ValueError(f"batch must be a positive integer, got {batch!r}")
+    launch = _step_launcher(state, table, cam, dyn, cfg=cfg, n_cells=n_cells, n_items=n_items,
+                            lanes=lanes, out=out, seg=seg, steps=steps, ior=ior)
+    if seg.shape[0] != batch * steps:
+        raise ValueError(f"seg must hold batch * steps = {batch * steps} slots, "
+                         f"got {seg.shape[0]}")
+
+    def enqueue() -> None:
+        seg.zero_()
+        for b in range(batch):
+            launch(b * steps)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(table.device):
+        enqueue()
+        megakernel_step.launches += batch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                enqueue()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+
+    # The graph holds raw pointers into these tensors: they live as long as it.
+    def replay(_held=(state, table, cam, out, seg)) -> None:
+        graph.replay()
+        megakernel_step.launches += batch
+
+    return replay

@@ -13,8 +13,11 @@ What bounds them on an H100: ``op_chain`` the ALU issue rate, by design
 applies the op ``iters`` times, so ``n_arrays`` independent dependency
 chains per thread hide the ALU latency, and the launch moves only
 ``(n_arrays + 1) * 4`` bytes per element); ``stream_scale`` device-memory
-bytes, 4 read and 4 written per element (16-byte loads and stores, four in
-flight per thread).
+bytes, 4 read and 4 written per element, and how near the peak a pass
+comes is decided by its address pattern: one ``float4`` a thread, one
+contiguous 8 KB tile a block, as many blocks as tiles, loads and stores
+with the streaming hint (a persistent grid, strided, tiled or fed by TMA
+bulk copies, measured 5-9% slower).
 
 The ops are the bodies of ``perf_probe.py:87-122`` under the names of
 ``OPS``; ``fma`` is the one addition, the fused instruction asked for by
@@ -173,6 +176,17 @@ def _check_stream(x: torch.Tensor) -> None:
                          f"{tuple(x.shape)}")
 
 
+def check_stream_launch(x: torch.Tensor, y: torch.Tensor) -> None:
+    """What the stream kernel takes beyond ``_check_stream``: one dense run
+    of float32 in and out, each starting on a 16-byte boundary (it moves
+    ``float4``; only the last ``n % 4`` elements go one by one).  A view
+    such as ``x[1:]`` raises ValueError, it is not copied."""
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("x must be contiguous")
+    if x.data_ptr() % 16 or y.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the kernel moves float4)")
+
+
 def stream_scale_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``stream_scale``: ``2 * x``."""
     _check_stream(x)
@@ -183,20 +197,17 @@ def stream_scale(x: torch.Tensor) -> torch.Tensor:
     """``y = 2 * x`` in one pass over device memory; x is float32 of any
     shape, y a new tensor shaped as x.
 
-    On a CUDA tensor this launches the kernel (contiguous, 16-byte aligned)
-    or raises.  On a CPU tensor it runs the plain version.
-    ``stream_scale.launches`` counts the launches.
+    On a CUDA tensor this launches the kernel (contiguous, 16-byte aligned:
+    ``check_stream_launch``) or raises.  On a CPU tensor it runs the plain
+    version.  ``stream_scale.launches`` counts the launches.
     """
     _check_stream(x)
     if x.device.type == "cpu":
         return stream_scale_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"stream_scale runs on CUDA or the CPU, not {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    y = torch.empty_like(x)
-    if x.data_ptr() % 16 or y.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned (the kernel moves float4)")
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    check_stream_launch(x, y)
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -10,8 +10,9 @@ Three entry points, counterparts of ``cpu_path_tracing_tpu/ops/wavefront.py``:
   loop of the plain step, ``megakernel_step_reference``, in the scene's
   dtype on any device, float64 and tent jitter included.
 * ``render_wavefront_per_step`` (``render_wavefront_pallas``,
-  ``:252-371``): the same loop with one launch of the per-step kernel per
-  iteration (the plain step when the scene is on the CPU).
+  ``:252-371``): the same loop over launches of the per-step kernel, a few
+  iterations each, a batch of launches replayed as one CUDA graph (the
+  plain step, launch by launch, when the scene is on the CPU).
 
 The two loops share one host loop: a pool of ``B = min(lanes or
 cfg.wavefront_lanes, n_items)`` lanes, item = gen * B + lane, cell =
@@ -38,15 +39,19 @@ from ..config import RenderConfig
 from .kernels.megakernel import (
     init_lane_state,
     megakernel_step,
+    megakernel_step_batch,
     megakernel_step_reference,
     pack_camera,
     pack_scene,
     persistent_render,
 )
 
-# Steps launched between two reads of the live count: the loop syncs with
-# the device once per batch, and a step on a drained pool adds 0.
+# Launches between two reads of the live counts: the loop syncs with the
+# device once per batch, and a step on a drained pool adds 0.
 STEP_BATCH = 16
+# Steps one launch of the per-step kernel runs with the path in registers
+# (PERF.md, Findings: measured at 1, 2, 4, 8, 16 and 32).
+STEPS_PER_LAUNCH = 8
 
 
 def _span(scene, cell_ids, num_samples: int):
@@ -89,7 +94,12 @@ def render_wavefront_persistent(scene, cfg: RenderConfig, cell_ids, sample_start
 def drive_items(step, scene, cfg: RenderConfig, cell_ids, sample_start: int,
                 num_samples: int, lanes: int | None = None):
     """The per-step loop: ``step`` (``megakernel_step`` or its plain
-    version) over the span until the pool drains.  Returns per-item
+    version) over the span until the pool drains, in batches of
+    ``STEP_BATCH`` launches of ``STEPS_PER_LAUNCH`` steps.  After each batch
+    the host reads its live counts and stops when the last step found no
+    lane alive.  With ``megakernel_step`` on a CUDA scene a batch is one
+    replay of a CUDA graph (``megakernel_step_batch``); any other ``step``,
+    and any scene on the CPU, runs launch by launch.  Returns per-item
     radiance (out [3, n_items], item = sample * n_cells + c) and the stats
     ``{segments, iters, lanes}``."""
     n_cells, cell_start, n_items = _span(scene, cell_ids, num_samples)
@@ -103,24 +113,35 @@ def drive_items(step, scene, cfg: RenderConfig, cell_ids, sample_start: int,
     # starts its next path in the step that ends the last: one more step
     # finds the pool drained.
     cap = n_gens * cfg.max_depth + 1
-    seg = torch.zeros(cap, dtype=torch.int64, device=device)
+    S = STEPS_PER_LAUNCH
+    seg = torch.zeros(STEP_BATCH * S, dtype=torch.int64, device=device)
     table, cam = pack_scene(scene, dtype), pack_camera(scene, dtype)
     state = init_lane_state(B, device, dtype)
-    kw = dict(cfg=cfg, n_cells=n_cells, n_items=n_items, lanes=B, out=out, seg=seg,
+    dyn = (cell_start, sample_start)
+    kw = dict(cfg=cfg, n_cells=n_cells, n_items=n_items, lanes=B, out=out, seg=seg, steps=S,
               ior=scene.ior)
-    done = 0
+
+    def run_batch():
+        seg.zero_()
+        for b in range(STEP_BATCH):
+            step(state, table, cam, dyn, seg_slot=b * S, **kw)
+
+    replay = None
+    counts = []
     while True:
-        stop = min(done + STEP_BATCH, cap)
-        for slot in range(done, stop):
-            step(state, table, cam, (cell_start, sample_start), seg_slot=slot, **kw)
-        done = stop
-        if int(seg[done - 1]) == 0:  # the one sync of the batch
+        if step is not megakernel_step or device.type != "cuda":
+            run_batch()
+        elif replay is None:  # runs the first batch, captures the rest
+            replay = megakernel_step_batch(state, table, cam, dyn, batch=STEP_BATCH, **kw)
+        else:
+            replay()
+        counts += seg.tolist()  # the one sync of the batch
+        if counts[-1] == 0:
             break
-        if done == cap:
+        if len(counts) >= cap:
             raise RuntimeError(f"the wavefront loop did not drain in {cap} steps "
                                f"(n_gens={n_gens}, max_depth={cfg.max_depth})")
-    seg = seg[:done].cpu()
-    return out, {"segments": int(seg.sum()), "iters": int((seg > 0).sum()), "lanes": B}
+    return out, {"segments": sum(counts), "iters": sum(c > 0 for c in counts), "lanes": B}
 
 
 def render_wavefront(scene, cfg: RenderConfig, cell_ids, sample_start: int,
@@ -149,9 +170,9 @@ def render_wavefront(scene, cfg: RenderConfig, cell_ids, sample_start: int,
 def render_wavefront_per_step(scene, cfg: RenderConfig, cell_ids, sample_start: int,
                               num_samples: int, *, lanes: int | None = None,
                               with_stats: bool = False):
-    """``render_wavefront`` with one ``megakernel_step`` per iteration: on
-    a CUDA scene the per-step kernel (float32, uniform jitter, or
-    ValueError), on a CPU scene its plain version."""
+    """``render_wavefront`` through ``megakernel_step``: on a CUDA scene the
+    per-step kernel (float32, uniform jitter, or ValueError), on a CPU
+    scene its plain version."""
     out, stats = drive_items(megakernel_step, scene, cfg, cell_ids, sample_start, num_samples,
                         lanes)
     sums = _cell_sums(out, num_samples, int(cell_ids.shape[0]))

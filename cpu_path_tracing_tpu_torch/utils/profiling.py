@@ -2,8 +2,9 @@
 
 ``maybe_trace`` captures a ``torch.profiler`` trace around any render (a
 Chrome trace, viewable in Perfetto or chrome://tracing), ``annotate`` names
-a pipeline phase in such a trace (and in an NVTX timeline on the card), and
-``device_time_by_kernel`` sums a profile's device time by kernel name.
+a pipeline phase in such a trace (and in an NVTX timeline on the card),
+``device_time_by_kernel`` sums a profile's device time by kernel name and
+``device_kernel_ms`` lists one kernel's launches in the order they ran.
 """
 
 from __future__ import annotations
@@ -60,3 +61,13 @@ def device_time_by_kernel(prof) -> dict:
             ms, count = out.get(k.key, (0.0, 0))
             out[k.key] = (ms + d / 1e3, count + k.count)
     return out
+
+
+def device_kernel_ms(prof, name_part: str) -> list:
+    """Device ms of every launch of the kernels whose name holds
+    ``name_part``, in the order the card started them, from a finished
+    profile.  Launches replayed from a CUDA graph are device-side rows like
+    any other."""
+    rows = [(e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type != torch.autograd.DeviceType.CPU and name_part in e.name]
+    return [ms for _, ms in sorted(rows)]

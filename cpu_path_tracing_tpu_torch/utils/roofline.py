@@ -128,6 +128,18 @@ def bound_ms(nbytes: float, issues: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def lane_state_bytes(lanes: int, launches: int, carried_in: int, carried_out: int,
+                     words_changed: int, n_items: int) -> int:
+    """Device-memory bytes the per-step kernel's design moves in a render,
+    from what a run counted: every lane reads its gen and alive words each
+    launch (8); a lane alive when a launch starts reads its path, 12 floats
+    and 3 ints (60), one alive when it ends writes it (60); a gen or alive
+    word that changed is written (4); each item writes its radiance (12).
+    The floor of the state traffic is this over the memory rate."""
+    return (8 * lanes * launches + 60 * (carried_in + carried_out) + 4 * words_changed
+            + 12 * n_items)
+
+
 def probe_model_ms(ops: OpCounts, constants: dict) -> float:
     """``ops`` at the rates a probe measured (``scripts/torch_perf_probe.py``
     keys, in G/s): a simple operation at the add chain's rate; a square

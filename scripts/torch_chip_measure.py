@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Measurements of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 scripts/torch_chip_measure.py [--part build|fmad|profile|scenes|train|step|probe|all]
+    python3 scripts/torch_chip_measure.py
+        [--part build|fmad|profile|scenes|train|step|probe|stream|all]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
@@ -26,16 +27,29 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   a cProfile of the first step (the top functions by cumulative time), the
   second step's time, then ``torch.profiler`` over 3 steps as in profile.
 - step: the per-step render of the main path (``cli bench``'s loop,
-  ``ops/wavefront.drive_items`` with the per-step kernel): CUDA-event ms
-  (1 warm-up, 3 runs) with the loop's sync every 16 steps and every 64, in
-  the order 16, 64, 16, 64; the pool widths 2^17, 2^19 and 2^21 (ms,
-  iterations, occupancy); a cProfile of one render (host time by function);
-  then ``torch.profiler`` over 3 renders as in profile.
+  ``ops/wavefront.drive_items`` with the per-step kernel).  By steps a
+  launch (8, 1, 2, 4, 16, 32, 8): the loop's CUDA-event ms (1 warm-up, 3
+  runs) with a batch replayed as a CUDA graph and launch by launch, the
+  kernel's device ms and launches from ``torch.profiler``, and the
+  lane-state bytes the design moves (``step_traffic``).  Then, at the
+  module's steps a launch: the loop's sync every 16 launches and every 64,
+  in the order 16, 64, 16, 64; the pool widths 2^17, 2^19 and 2^21 (ms,
+  iterations, occupancy); the kernel's time per launch by pool occupancy
+  (ten bins: launches, device ms, segments; what the drain tail costs); a
+  cProfile of one render (host time by function); ``torch.profiler`` over
+  3 renders as in profile.
 - probe: the machine-constant probe (``scripts/torch_perf_probe.py``) three
   times in one process: each run's line, then each constant's least, median
   and greatest value and its spread, (greatest - least) / median; then the
   fma chain at 2,048, 8,192 and 32,768 iterations (what a launch costs
   beside its loop).
+- stream: the designs of the device-memory stream ``y = 2x`` in
+  ``scripts/torch_stream_designs.cu`` (a strided persistent grid, one tile
+  a block in several shapes, persistent grids walking tiles, TMA bulk
+  copies through a shared-memory ring), built with nvcc into ``_build/``,
+  each held bitwise to ``2 * x`` at 2^26 float32 and timed in 5 rounds of
+  20 launches with ``torch.mul(x, 2.0, out=y)`` before and after every
+  round: least, median and greatest ms and the median's GB/s, fastest first.
 
 Imports nothing of JAX.  Needs a CUDA device.
 """
@@ -45,6 +59,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import cProfile
+import ctypes
 import json
 import os
 import pstats
@@ -232,15 +247,78 @@ def part_train(dev):
     emit({"train_profile": profiled(call)})
 
 
+@contextlib.contextmanager
+def steps_per_launch(steps: int):
+    """Run the per-step loop with ``steps`` steps a launch."""
+    from cpu_path_tracing_tpu_torch.ops import wavefront
+
+    module_steps = wavefront.STEPS_PER_LAUNCH
+    wavefront.STEPS_PER_LAUNCH = steps
+    try:
+        yield
+    finally:
+        wavefront.STEPS_PER_LAUNCH = module_steps
+
+
+def step_traffic(scene, cfg, ids, sample_start: int, num_samples: int, lanes=None) -> dict:
+    """One per-step render launch by launch, counting around every launch
+    what decides the design's lane-state traffic: the lanes alive before
+    and after it and the gen and alive words it changed.  Returns the
+    loop's ``out`` and stats, the per-launch segment counts, and the bytes
+    by ``roofline.lane_state_bytes``."""
+    from cpu_path_tracing_tpu_torch.ops import wavefront
+
+    tally = torch.zeros(3, dtype=torch.int64, device=scene.device)
+    per_launch = []
+
+    def counted(state, *args, seg, seg_slot, steps, **kw):
+        before = state.i[3:].clone()
+        mk.megakernel_step(state, *args, seg=seg, seg_slot=seg_slot, steps=steps, **kw)
+        tally[0] += before[1].sum()
+        tally[1] += state.i[4].sum()
+        tally[2] += (state.i[3:] != before).sum()
+        per_launch.append(seg[seg_slot:seg_slot + steps].sum())
+
+    out, st = wavefront.drive_items(counted, scene, cfg, ids, sample_start, num_samples, lanes)
+    carried_in, carried_out, changed = (int(v) for v in tally)
+    launches = len(per_launch)
+    n_items = num_samples * int(ids.shape[0])
+    return {"out": out, "stats": st, "launches": launches, "carried_in": carried_in,
+            "carried_out": carried_out, "words_changed": changed,
+            "segments_per_launch": [int(v) for v in torch.stack(per_launch).tolist()],
+            "state_bytes": roofline.lane_state_bytes(st["lanes"], launches, carried_in,
+                                                     carried_out, changed, n_items)}
+
+
 def part_step(dev):
+    from torch.profiler import ProfilerActivity, profile
+
     from cpu_path_tracing_tpu_torch.ops import wavefront
 
     scene = tp.get_scene("box_mirror", MAIN.width, MAIN.height).to(dev)
     ids = torch.arange(MAIN.num_cells, device=dev)
 
-    def call(lanes=None):
-        return wavefront.drive_items(mk.megakernel_step, scene, MAIN, ids, 0, MAIN.spp, lanes)
+    def one_by_one(*args, **kw):  # not the wrapper itself: the loop launches one by one
+        mk.megakernel_step(*args, **kw)
 
+    def call(lanes=None, step=mk.megakernel_step):
+        return wavefront.drive_items(step, scene, MAIN, ids, 0, MAIN.spp, lanes)
+
+    for steps in (8, 1, 2, 4, 16, 32, 8):
+        with steps_per_launch(steps):
+            graph_ms, (_, st) = event_times(call)
+            eager_ms, _ = event_times(lambda: call(step=one_by_one))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            per_launch = profiling.device_kernel_ms(prof, "megakernel_step_kernel")
+            traffic = step_traffic(scene, MAIN, ids, 0, MAIN.spp)
+        emit({"steps_per_launch": steps, "graph_loop_ms": graph_ms,
+              "launch_by_launch_loop_ms": eager_ms, "launches": len(per_launch),
+              "k4_device_ms": sum(per_launch), "k4_us_per_launch": 1e3 * sum(per_launch)
+              / len(per_launch), "iters": st["iters"], "segments": st["segments"],
+              "state_gb": traffic["state_bytes"] / 1e9,
+              "state_floor_ms": traffic["state_bytes"] / roofline.PEAK_BYTES_PER_S * 1e3})
     batch = wavefront.STEP_BATCH
     try:
         for b in (16, 64, 16, 64):
@@ -253,6 +331,25 @@ def part_step(dev):
         times, (_, st) = event_times(lambda: call(lanes))
         emit({"lanes": lanes, "ms": times, "iters": st["iters"], "segments": st["segments"],
               "occupancy": st["segments"] / (st["iters"] * lanes)})
+    # The kernel's time by pool occupancy: the launches of one render in the
+    # order they ran, each with the share of its lane-steps that were live.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traffic = step_traffic(scene, MAIN, ids, 0, MAIN.spp)
+        torch.cuda.synchronize()
+    per_launch = profiling.device_kernel_ms(prof, "megakernel_step_kernel")
+    lane_steps = wavefront.STEPS_PER_LAUNCH * traffic["stats"]["lanes"]
+    bins = [{"occupancy": f"{k / 10:.1f}-{(k + 1) / 10:.1f}", "launches": 0, "ms": 0.0,
+             "segments": 0} for k in range(10)]
+    for ms, segments in zip(per_launch, traffic["segments_per_launch"], strict=True):
+        b = bins[min(9, int(10 * segments / lane_steps))]
+        b["launches"] += 1
+        b["ms"] += ms
+        b["segments"] += segments
+    emit({"k4_by_pool_occupancy": bins, "steps_per_launch": wavefront.STEPS_PER_LAUNCH,
+          "launches": len(per_launch), "k4_device_ms": sum(per_launch),
+          "empty_launches": sum(1 for v in traffic["segments_per_launch"] if v == 0),
+          "empty_launch_ms": sum(ms for ms, v in zip(per_launch, traffic["segments_per_launch"])
+                                 if v == 0)})
     prof = cProfile.Profile()
     prof.enable()
     call()
@@ -286,6 +383,59 @@ def part_probe(dev):
               "share_of_peak": rate / roofline.PEAK_FP32_ISSUES_PER_S})
 
 
+def part_stream(dev):
+    import torch_perf_probe as tpp  # beside this script
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / "stream_designs.so"
+    subprocess.run([_build.find_nvcc(), *_build.ARCH_FLAGS, *_build.FLAGS, "-shared", "-o",
+                    str(so), os.path.join(here, "torch_stream_designs.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    vp = ctypes.c_void_p
+    lib.design_run.argtypes = [ctypes.c_int, vp, vp, ctypes.c_longlong, ctypes.c_float, vp]
+    lib.design_run.restype = ctypes.c_int
+    lib.design_name.argtypes = [ctypes.c_int]
+    lib.design_name.restype = ctypes.c_char_p
+    names = []
+    while lib.design_name(len(names)):
+        names.append(lib.design_name(len(names)).decode())
+    n = tpp.STREAM_N
+    x = torch.arange(n, dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    want = x * 2.0
+
+    def run(v):
+        err = lib.design_run(v, x.data_ptr(), y.data_ptr(), n, 2.0,
+                             torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"design {names[v]!r} launch failed ({err})")
+
+    def library():
+        torch.mul(x, 2.0, out=y)
+
+    for v, name in enumerate(names):
+        y.zero_()
+        run(v)
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            raise AssertionError(f"design {name!r} is not 2 * x")
+    times = {name: [] for name in ("torch.mul", *names)}
+    for _ in range(5):
+        times["torch.mul"].append(tpp.time_ms(library, 20))
+        for v, name in enumerate(names):
+            times[name].append(tpp.time_ms(lambda: run(v), 20))
+        times["torch.mul"].append(tpp.time_ms(library, 20))
+    rows = []
+    for name, ts in times.items():
+        ts = sorted(ts)
+        rows.append({"design": name, "least_ms": ts[0], "median_ms": ts[len(ts) // 2],
+                     "greatest_ms": ts[-1], "median_gbps": 2 * 4 * n / ts[len(ts) // 2] / 1e6})
+    emit({"stream_designs": sorted(rows, key=lambda r: r["median_ms"]), "n": n,
+          "bitwise_equal_to_2x": True})
+
+
 def part_scenes(dev):
     for name in tp.scene_names():
         if name == "disco_sphere":  # the alias of box_mirror
@@ -303,7 +453,7 @@ def part_scenes(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "step",
-                                       "probe", "all"), default="all")
+                                       "probe", "stream", "all"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -312,7 +462,7 @@ def main() -> int:
     print("smi", smi(), flush=True)
     for part, run in (("build", part_build), ("fmad", part_fmad), ("profile", part_profile),
                       ("scenes", part_scenes), ("train", part_train), ("step", part_step),
-                      ("probe", part_probe)):
+                      ("probe", part_probe), ("stream", part_stream)):
         if args.part in (part, "all"):
             run(dev)
     print("smi", smi(), flush=True)

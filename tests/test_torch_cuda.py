@@ -89,7 +89,9 @@ def test_step_kernel_matches_plain_step_and_whole_render_kernel(cuda, name):
     ids = torch.arange(cfg.num_cells, device=cuda)
     before = mk.megakernel_step.launches
     got, st = wavefront.drive_items(mk.megakernel_step, scene, cfg, ids, 0, 2, lanes=1000)
-    assert mk.megakernel_step.launches - before >= st["iters"] > 0
+    launched = mk.megakernel_step.launches - before
+    assert launched * wavefront.STEPS_PER_LAUNCH >= st["iters"] > 0
+    assert launched % wavefront.STEP_BATCH == 0
     ref, ref_st = wavefront.drive_items(mk.megakernel_step_reference, scene, cfg, ids, 0, 2,
                                         lanes=1000)
     whole, whole_st = mk.persistent_render(mk.pack_scene(scene), mk.pack_camera(scene), (0, 0),
@@ -116,6 +118,76 @@ def test_regenerating_step_kernel(cuda):
     torch.cuda.synchronize()
     assert st["lanes"] == 50_000 and 150_001 + 80_000 > cfg.num_cells
     assert torch.equal(got, whole) and _tier1(got, ref)
+
+
+@pytest.mark.parametrize("steps", [2, 4, 32])
+def test_step_kernel_with_steps_equals_single_launches_and_plain_version(cuda, steps):
+    """One launch of S steps against S launches of one step, from the
+    first launch through regenerating lanes to past the drain: the state
+    (``lane_state_equal``), ``out`` and every ``seg`` slot bitwise.  Then
+    against the plain version run the same way: counts equal, radiance by
+    tier 1."""
+    cfg = tp.RenderConfig(width=64, height=48, spp=2, max_depth=8)
+    scene = tp.get_scene("box_mirror", 64, 48).to(cuda)
+    args = (mk.pack_scene(scene), mk.pack_camera(scene), (1_001, 3))
+    n_cells, lanes = 12_000, 5_000  # past the last cell (12,288); 5 generations
+    n_items = 2 * n_cells
+    launches = -(-(5 * cfg.max_depth + 1) // steps) + 1
+    kw = dict(cfg=cfg, n_cells=n_cells, n_items=n_items, lanes=lanes, ior=scene.ior)
+
+    def fresh():
+        return (mk.init_lane_state(lanes, cuda), torch.zeros((3, n_items), device=cuda),
+                torch.zeros(launches * steps, dtype=torch.int64, device=cuda))
+
+    (sa, oa, ga), (sb, ob, gb), (sc, oc, gc) = fresh(), fresh(), fresh()
+    before = mk.megakernel_step.launches
+    for n in range(launches):
+        mk.megakernel_step(sa, *args, out=oa, seg=ga, seg_slot=n * steps, steps=steps, **kw)
+        for j in range(steps):
+            mk.megakernel_step(sb, *args, out=ob, seg=gb, seg_slot=n * steps + j, **kw)
+        assert mk.lane_state_equal(sa, sb), n
+        mk.megakernel_step_reference(sc, *args, out=oc, seg=gc, seg_slot=n * steps,
+                                     steps=steps, **kw)
+    torch.cuda.synchronize()
+    assert mk.megakernel_step.launches - before == launches * (1 + steps)
+    assert torch.equal(oa, ob) and torch.equal(ga, gb)
+    assert int(ga[-steps:].sum()) == 0 and int(sa.i[4].sum()) == 0  # drained
+    assert torch.equal(ga, gc) and torch.equal(sa.i[3:], sc.i[3:]) and _tier1(oa, oc)
+
+
+def test_graph_driven_loop_equals_launch_by_launch(cuda):
+    """``drive_items`` with the kernel wrapper itself replays a captured
+    batch; with any other callable it launches one by one.  On a
+    regenerating span at a nonzero cell_start and sample_start both give
+    the same radiance bitwise and the same stats, and the graph-driven loop
+    counts STEP_BATCH launches per batch."""
+    cfg = tp.RenderConfig(width=256, height=192, spp=8, max_depth=100)
+    scene = tp.get_scene("box_mirror", 256, 192).to(cuda)
+    ids = torch.arange(150_001, 150_001 + 80_000, device=cuda)
+    before = mk.megakernel_step.launches
+    got, st = wavefront.drive_items(mk.megakernel_step, scene, cfg, ids, 5, 3, lanes=50_000)
+    graphed = mk.megakernel_step.launches - before
+    one_by_one, ref_st = wavefront.drive_items(lambda *a, **k: mk.megakernel_step(*a, **k),
+                                               scene, cfg, ids, 5, 3, lanes=50_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one_by_one) and st == ref_st and st["iters"] > 100
+    assert graphed == mk.megakernel_step.launches - before - graphed
+    assert graphed % wavefront.STEP_BATCH == 0
+    assert graphed * wavefront.STEPS_PER_LAUNCH >= st["iters"] + 1
+
+
+def test_step_batch_rejects_a_wrong_count_block(cuda):
+    cfg = tp.RenderConfig(width=32, height=24, spp=1, max_depth=4)
+    scene = tp.get_scene("box", 32, 24).to(cuda)
+    n = cfg.num_cells
+    kw = dict(batch=4, steps=2, cfg=cfg, n_cells=n, n_items=n, lanes=256,
+              out=torch.zeros((3, n), device=cuda), ior=scene.ior)
+    args = (mk.init_lane_state(256, cuda), mk.pack_scene(scene), mk.pack_camera(scene), (0, 0))
+    with pytest.raises(ValueError, match="batch \\* steps"):
+        mk.megakernel_step_batch(*args, seg=torch.zeros(7, dtype=torch.int64, device=cuda), **kw)
+    with pytest.raises(ValueError, match="batch"):
+        mk.megakernel_step_batch(*args, seg=torch.zeros(8, dtype=torch.int64, device=cuda),
+                                 **dict(kw, batch=0))
 
 
 def test_render_image_per_step_launches_the_step_kernel(cuda):
@@ -190,11 +262,19 @@ def test_op_chain_kernel_matches_plain_version(cuda, op, n_arrays):
             assert pk.op_chain.launches == before + 1
 
 
-@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 3, 3])
+# One tile of the stream kernel: 512 threads x one float4 (csrc/probe.cu).
+STREAM_TILE = 512 * 4
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, STREAM_TILE - 1, STREAM_TILE, STREAM_TILE + 1,
+                               1 << 16, (1 << 16) + 3, (1 << 20) + 3, 1 << 26])
 def test_stream_kernel_matches_plain_version(cuda, n):
+    """Bitwise at sizes below a float4, around one tile, with a ragged end
+    and at the probe's own 2^26."""
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(n, dtype=np.float32)).to(cuda)
     before = pk.stream_scale.launches
-    assert torch.equal(pk.stream_scale(x), pk.stream_scale_reference(x))
+    got = pk.stream_scale(x)
+    assert got.shape == x.shape and torch.equal(got, pk.stream_scale_reference(x))
     assert pk.stream_scale.launches == before + 1
 
 

@@ -131,6 +131,59 @@ def _step_args(cfg, scene, lanes):
     return state, (mk.pack_scene(scene), mk.pack_camera(scene), (0, 0)), kw
 
 
+@pytest.mark.parametrize("steps", [2, 4])
+def test_reference_with_steps_equals_single_steps(steps):
+    """One call of S steps is S calls of one step, bitwise in the state,
+    ``out`` and every ``seg`` slot: from a mid-render state (live lanes,
+    lanes that regenerate inside the call, 3 generations) to past the
+    drain, where further steps add 0 and write nothing."""
+    cfg = tp.RenderConfig(width=8, height=6, spp=2, max_depth=6)
+    scene = tp.get_scene("simple", 8, 6)
+    lanes, calls = 160, 12
+    n_gens = -(-cfg.num_cells * cfg.spp // lanes)
+    assert n_gens == 3
+    a, args, kw = _step_args(cfg, scene, lanes)
+    kw["seg"] = torch.zeros(3 + calls * steps, dtype=torch.int64)
+    for slot in range(3):  # to mid-render, one step at a time
+        mk.megakernel_step_reference(a, *args, **dict(kw, seg_slot=slot))
+    assert 0 < int((a.i[4] != 0).sum()) and int(a.i[3].max()) < n_gens - 1
+    b = mk.LaneState(a.f.clone(), a.i.clone())
+    kw_b = dict(kw, out=kw["out"].clone(), seg=kw["seg"].clone())
+    for call in range(calls):
+        slot = 3 + call * steps
+        mk.megakernel_step_reference(a, *args, **dict(kw, seg_slot=slot, steps=steps))
+        for j in range(steps):
+            mk.megakernel_step_reference(b, *args, **dict(kw_b, seg_slot=slot + j))
+        assert torch.equal(a.f, b.f) and torch.equal(a.i, b.i), call
+        assert mk.lane_state_equal(a, b)
+    assert torch.equal(kw["out"], kw_b["out"]) and torch.equal(kw["seg"], kw_b["seg"])
+    seg = kw["seg"]
+    assert int(a.i[3].min()) == n_gens - 1 and int(a.i[4].sum()) == 0  # drained
+    assert int(seg[-steps:].sum()) == 0 and int(seg[3]) > 0
+    assert int(seg.sum()) >= cfg.num_cells * cfg.spp
+    drained = (a.f.clone(), a.i.clone(), kw["out"].clone())
+    mk.megakernel_step_reference(a, *args, **dict(kw, seg_slot=0, steps=steps))
+    assert all(torch.equal(x, y) for x, y in zip(drained, (a.f, a.i, kw["out"])))
+
+
+def test_lane_state_equal_reads_what_a_step_reads():
+    """gen and alive of every lane and the path of live lanes count; the
+    path rows of an idle lane do not."""
+    a = mk.init_lane_state(4, "cpu")
+    a.i[4] = torch.tensor([1, 0, 1, 0], dtype=torch.int32)
+    a.f[:] = torch.arange(48.0).reshape(12, 4)
+    b = mk.LaneState(a.f.clone(), a.i.clone())
+    b.f[5, 1], b.i[0, 3], b.i[1, 1] = -1.0, 7, 9  # idle lanes' path rows
+    assert mk.lane_state_equal(a, b)
+    for row, lane in ((None, 0), (0, 2), (2, 0), (3, 1), (4, 3)):
+        c = mk.LaneState(b.f.clone(), b.i.clone())
+        if row is None:
+            c.f[7, lane] += 1.0
+        else:
+            c.i[row, lane] += 1
+        assert not mk.lane_state_equal(a, c), (row, lane)
+
+
 def test_wrapper_on_cpu_runs_the_plain_version(monkeypatch):
     cfg = tp.RenderConfig(width=8, height=6, spp=1, max_depth=6)
     scene = tp.get_scene("box", 8, 6)
@@ -163,8 +216,17 @@ def test_wrapper_rejects_bad_inputs():
         mk.megakernel_step(state, table, cam, dyn, **dict(kw, out=torch.zeros((3, 5))))
     with pytest.raises(ValueError, match="seg"):
         mk.megakernel_step(state, table, cam, dyn, **dict(kw, seg_slot=4))
+    with pytest.raises(ValueError, match="seg"):
+        mk.megakernel_step(state, table, cam, dyn, **dict(kw, seg_slot=2, steps=3))
+    for steps in (0, mk.MAX_STEPS + 1, 1.5):
+        with pytest.raises(ValueError, match="steps"):
+            mk.megakernel_step(state, table, cam, dyn, **dict(kw, steps=steps))
     with pytest.raises(ValueError, match="item range"):
         mk.megakernel_step(state, table, cam, dyn, **dict(kw, lanes=0))
+    # The captured batch is for the card only.
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.megakernel_step_batch(state, table, cam, dyn, batch=2, **{
+            k: v for k, v in kw.items() if k != "seg_slot"})
     meta = mk.LaneState(state.f.to("meta"), state.i.to("meta"))
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         mk.megakernel_step(meta, table.to("meta"), cam.to("meta"), dyn, **kw)

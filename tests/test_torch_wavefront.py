@@ -98,19 +98,73 @@ def test_observability_stats():
     assert 0.0 < stats["segments"] / (stats["iters"] * stats["lanes"]) <= 1.0
 
 
-def test_loop_raises_when_the_pool_does_not_drain():
-    """The loop stops at its hard cap of n_gens * max_depth + 1 steps with
-    an error, never with a silently truncated render."""
+def test_loop_raises_when_the_pool_does_not_drain(monkeypatch):
+    """The loop stops with an error, never with a silently truncated
+    render, at the end of the batch that reaches its hard cap of n_gens *
+    max_depth + 1 steps (batches of STEP_BATCH launches of STEPS_PER_LAUNCH
+    steps)."""
     cfg = tp.RenderConfig(width=4, height=3, spp=1, max_depth=5)
-    steps = []
+    for per_launch, batches in ((1, 4), (2, 2), (4, 1)):
+        monkeypatch.setattr(wavefront, "STEPS_PER_LAUNCH", per_launch)
+        launches = []
 
-    def never_drains(state, table, cam, dyn, *, seg, seg_slot, **kw):
-        steps.append(seg_slot)
-        seg[seg_slot] += 1
+        def never_drains(state, table, cam, dyn, *, seg, seg_slot, steps, **kw):
+            launches.append((seg_slot, steps))
+            seg[seg_slot:seg_slot + steps] += 1
 
-    with pytest.raises(RuntimeError, match="did not drain in 61 steps"):
-        wavefront.drive_items(never_drains, tp.get_scene("box", 4, 3), cfg, _ids(cfg), 0, 1, 4)
-    assert steps == list(range(61))
+        with pytest.raises(RuntimeError, match="did not drain in 61 steps"):
+            wavefront.drive_items(never_drains, tp.get_scene("box", 4, 3), cfg, _ids(cfg), 0, 1,
+                                  4)
+        batch = [(b * per_launch, per_launch) for b in range(wavefront.STEP_BATCH)]
+        assert launches == batch * batches
+        assert len(launches) * per_launch >= 61 > (len(launches) - len(batch)) * per_launch
+
+
+@pytest.mark.parametrize("per_launch", [1, 2, 4])
+def test_steps_per_launch_invariance(monkeypatch, per_launch):
+    """The steps a launch runs change the schedule of launches, not the
+    render: the same sums, segments, iters and retirement histogram, over
+    a pool that regenerates (5 generations)."""
+    cfg = tp.RenderConfig(width=W, height=H, spp=2, max_depth=16)
+    scene = tp.get_scene("box_mirror", W, H)
+
+    def render(fn, **kw):
+        return fn(scene, cfg, _ids(cfg), 0, 2, lanes=40, with_stats=True, **kw)
+
+    monkeypatch.setattr(wavefront, "STEPS_PER_LAUNCH", 1)
+    ref, ref_st = render(wavefront.render_wavefront, depth_hist=True)
+    monkeypatch.setattr(wavefront, "STEPS_PER_LAUNCH", per_launch)
+    got, st = render(wavefront.render_wavefront, depth_hist=True)
+    assert torch.equal(got, ref)
+    assert st["segments"] == ref_st["segments"] > 0 and st["iters"] == ref_st["iters"] > 16
+    assert torch.equal(st["depth_hist"], ref_st["depth_hist"])
+    per_step, per_step_st = render(wavefront.render_wavefront_per_step)
+    assert torch.equal(per_step, ref)
+    assert per_step_st == {k: ref_st[k] for k in ("segments", "iters", "lanes")}
+
+
+def test_cpu_loop_never_captures_a_graph(monkeypatch):
+    """A CUDA graph is for the card only: on a CPU scene the per-step loop
+    calls ``megakernel_step`` launch by launch, a batch of STEP_BATCH calls
+    between two reads of the counts."""
+    def no_graph(*args, **kw):
+        raise AssertionError("the CPU loop asked for a captured batch")
+
+    calls = []
+    real = wavefront.megakernel_step
+
+    def counted(*args, **kw):
+        calls.append((kw["seg_slot"], kw["steps"]))
+        real(*args, **kw)
+
+    monkeypatch.setattr(wavefront, "megakernel_step_batch", no_graph)
+    monkeypatch.setattr(wavefront, "megakernel_step", counted)
+    cfg = tp.RenderConfig(width=4, height=3, spp=1, max_depth=6)
+    out, st = wavefront.drive_items(counted, tp.get_scene("box", 4, 3), cfg, _ids(cfg), 0, 1)
+    S = wavefront.STEPS_PER_LAUNCH
+    assert len(calls) % wavefront.STEP_BATCH == 0 and len(calls) * S >= st["iters"] > 0
+    assert calls[:wavefront.STEP_BATCH] == [(b * S, S) for b in range(wavefront.STEP_BATCH)]
+    assert bool(torch.isfinite(out).all())
 
 
 def test_integrator_dispatch(monkeypatch):
