@@ -9,19 +9,21 @@ does.  Each phase prints one JSON line; any failed check raises, so the
 script exits non-zero.
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
-2. build: nvcc seconds, each kernel's registers, stack and spills, and from
-   the SASS the loop of each probe op as the probe runs it: its
-   instructions and the arithmetic instruction that shows the loop was
-   neither folded nor hoisted.
+2. build: nvcc seconds, each kernel's registers, stack and spills (no
+   spill in the whole-render kernel, none in the replay kernel's buckets of
+   8 and 16 spheres), and from the SASS the loop of each probe op as the
+   probe runs it: its instructions and the arithmetic instruction that shows
+   the loop was neither folded nor hoisted.
 3. kernel_vs_plain: for every registered scene at 64x48, 2 spp, the
-   kernel's per-item radiance against its plain PyTorch version on the card.
-   Tier 1, max_depth 8: scale-aware deviation p99.9 < 1e-5 and fewer than
-   0.1% of items above 1e-3.  Tier 2, max_depth 100: mean deviation at most
-   1.5x that of an independent-seed plain render + 1e-6, every channel mean
-   within 1%.  Then kernel_regen: launches of more items than the kernel has
-   threads, so each thread starts further items, at a nonzero cell_start and
-   sample_start (one through ``render_cells_range``, one over a span that
-   runs past the last cell), held to tier 1 at max_depth 100.
+   kernel's per-item radiance against its plain PyTorch version on the card:
+   bitwise equal at max_depth 8 and 100 (the tier-1 and tier-2 figures the
+   per-step kernel is held to are reported beside it).  Then kernel_regen:
+   launches of more items than the kernel has threads, so each thread starts
+   further items, at a nonzero cell_start and sample_start (one through
+   ``render_cells_range``, one over a span that runs past the last cell),
+   a span whose item count is no multiple of 32, one of fewer items than a
+   warp has lanes, and one whose cells lie past 2^31 (the 64-bit kernel),
+   bitwise at max_depth 100.
 4. pins: ``render_image`` on the card against the committed JAX renders
    ``tests/data/pin_*_64x48.npz`` (2 spp, max_depth 16): at most 1% of
    pixels above 1e-4 scale-aware, channel means within 1%.
@@ -29,7 +31,7 @@ script exits non-zero.
    32 total spp, max_depth 100, with the kernel's launch count; then
    ``render_cells_range`` and the kernel alone timed with CUDA events
    (1 warm-up, median of 3), the plain version once at the same size, and
-   the kernel held to it on all 25,165,824 items by the tier-1 limits.
+   the kernel held to it on all 25,165,824 items bitwise.
    "Rays" are path segments (live paths summed over bounces).
 6. replay_vs_plain: the replay kernel's ``[7N+6]`` gradient partials against
    its plain version (float64 accumulation) on the card, for every scene
@@ -44,9 +46,9 @@ script exits non-zero.
    chunks: 5 per step): one warm-up step and 5 steps timed with CUDA
    events; steps/s, 5 replay launches per step, the loss each step (finite
    and falling), the forward and replay kernel ms on the first full chunk,
-   and both kernels against their plain versions there: the forward by
-   tier 1 on all 2,097,152 items, the replay by the block limits above with
-   the step's own cotangent.
+   and both kernels against their plain versions there: the forward
+   bitwise on all 2,097,152 items, the replay by the block limits above with
+   the step's own cotangent, and two replay launches bitwise equal.
 
 8. step_vs_plain and step_vs_persistent: for every registered scene at
    64x48, 2 spp, the per-step kernel's per-item radiance (the per-step
@@ -97,7 +99,9 @@ Then a ``{"kernels": [...]}`` line (five kernels, each with its launches on
 its path, its time, its plain version's, its bound, the least time the card
 could take for the same work at its published peaks, which side binds, the
 probe-model time of the render kernels, and a library call's time where one
-PyTorch call computes the same; the per-step kernel's bound is the
+PyTorch call computes the same; the whole-render and replay kernels also
+with their registers, the threads resident an SM and the launch's occupancy;
+the per-step kernel's bound is the
 render's, equal to the whole-render kernel's, with the floor of the
 lane-state traffic its design moves beside it as ``state_floor_ms``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Imports
@@ -273,10 +277,17 @@ def main() -> int:
                     or e["kernel"] in {f"probe_op_chain_kernel<{spec.code},{tpp.n_arrays(op)}>"
                                        for op, spec in pk.OPS.items()}],
           "probe_loops": probe_loops, "probe_loops_ok": loops_ok})
-    check({e["kernel"] for e in ptxas} >= {"persistent_render_kernel", "megakernel_step_kernel",
-                                           "replay_kernel<8>", "probe_stream_kernel",
-                                           "probe_op_chain_kernel<0,8>"},
+    by_name = {e["kernel"]: e for e in ptxas}
+    check(set(by_name) >= {"persistent_render_kernel<u32>", "persistent_render_kernel<i64>",
+                           "megakernel_step_kernel", "replay_kernel<u32,8>",
+                           "replay_kernel<u32,16>", "replay_kernel<u32,40>",
+                           "probe_stream_kernel", "probe_op_chain_kernel<0,8>"},
           "the build log lacks a kernel")
+    spilled = [k for k, e in by_name.items()
+               if k.startswith(("persistent_render_kernel", "replay_kernel"))
+               and not k.endswith(",40>") and ", 0 bytes spill stores" not in e["stack_spills"]]
+    check(not spilled, f"ptxas spilled registers in {spilled}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     check(loops_ok, "a probe loop lacks its arithmetic instruction (folded or hoisted), or the "
                     "mul-add chain was contracted")
 
@@ -292,6 +303,7 @@ def main() -> int:
             got = mk.persistent_render(table, cam, (0, 0), **kw)[0].cpu().numpy()
             ref = mk.persistent_render_reference(table, cam, (0, 0), **kw)[0].cpu().numpy()
             rec[f"d{depth}_exact_frac"] = float(np.mean(got == ref))
+            rec[f"d{depth}_bitwise"] = bool(np.array_equal(got, ref))
             if depth == 8:
                 t1 = tier1(got, ref)
                 rec["d8_p999"], rec["d8_frac_above_1e-3"] = t1["p999"], t1["frac_above_1e-3"]
@@ -305,7 +317,7 @@ def main() -> int:
                 rec["d100_channel_ratios"] = [float(r) for r in ratios]
                 ok = (rec["d100_mean_dev"] <= 1.5 * rec["d100_seed_yardstick"] + 1e-6
                       and bool(np.all(np.abs(ratios - 1.0) < 0.01)))
-            rec[f"d{depth}_ok"] = ok
+            rec[f"d{depth}_ok"] = ok and rec[f"d{depth}_bitwise"]
         emit(rec)
         check(rec["d8_ok"] and rec["d100_ok"], f"kernel vs plain version on {name}")
 
@@ -314,17 +326,31 @@ def main() -> int:
     scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
     table, cam = mk.pack_scene(scene), mk.pack_camera(scene)
     total = cfg.num_cells
-    for how, cell_start, n_cells, sample_start in (("render_cells_range", 1_000_003, 150_001, 5),
-                                                   ("past_last_cell", total - 50_000, 100_000, 6)):
-        n_items = 2 * n_cells
+    for how, cell_start, n_cells, sample_start, samples in (
+            ("render_cells_range", 1_000_003, 150_001, 5, 2),
+            ("past_last_cell", total - 50_000, 100_000, 6, 2),
+            ("items_no_multiple_of_32", 777, 12_345, 3, 3),
+            ("fewer_items_than_a_warp", 2_000_001, 7, 9, 3),
+            ("cells_past_2^31", 2**31 + 12_345, 5_000, 3, 2)):
+        if cell_start >= 2**31:  # a 32768 x 32768 image: the kernel's 64-bit items
+            cfg = tp.RenderConfig(width=32768, height=32768, spp=8, max_depth=100)
+            scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
+            table, cam = mk.pack_scene(scene), mk.pack_camera(scene)
+        n_items = samples * n_cells
         kw = dict(cfg=cfg, n_cells=n_cells, n_items=n_items, ior=scene.ior)
+        bits = mk.index_bits(mk.launch_params(cfg, (cell_start, sample_start), n_spheres=8,
+                                              n_cells=n_cells, n_items=n_items, ior=scene.ior))
         got, st = mk.persistent_render(table, cam, (cell_start, sample_start), **kw)
-        ref, _ = mk.persistent_render_reference(table, cam, (cell_start, sample_start), **kw)
+        ref, ref_st = mk.persistent_render_reference(table, cam, (cell_start, sample_start), **kw)
         rec = {"phase": "kernel_regen", "case": how, "cell_start": cell_start,
                "n_cells": n_cells, "sample_start": sample_start, "n_items": n_items,
-               "lanes": st["lanes"], "items_per_lane": n_items / st["lanes"],
+               "index_bits": bits, "lanes": st["lanes"], "items_per_lane": n_items / st["lanes"],
+               "segments": [int(st["segments"]), ref_st["segments"]],
+               "bitwise": bool(torch.equal(got, ref)),
                **tier1(got.cpu().numpy(), ref.cpu().numpy())}
-        ok = rec["ok"] and st["lanes"] < n_items
+        ok = (rec["ok"] and rec["bitwise"] and int(st["segments"]) == ref_st["segments"]
+              and (st["lanes"] < n_items or n_items < 100_000)
+              and bits == (64 if cell_start >= 2**31 else 32))
         if how == "render_cells_range":
             ids = torch.arange(cell_start, cell_start + n_cells, device=dev)
             sums = render.render_cells_range(scene, cfg, ids, sample_start, 2)
@@ -376,6 +402,7 @@ def main() -> int:
     plain_ms = start.elapsed_time(end)
     got, ref = got.cpu().numpy(), ref.cpu().numpy()
     t1 = tier1(got, ref)
+    main_bitwise = bool(np.array_equal(got, ref))
     max_abs_err = float(np.abs(got - ref).max())
     seconds = range_ms / 1e3
     emit({"phase": "main_path", "config": "box_mirror 1024x768, 32 total spp, max_depth 100",
@@ -383,10 +410,10 @@ def main() -> int:
           "seconds": seconds, "mrays_per_s": segments / seconds / 1e6,
           "occupancy": segments / (iters * lanes), "iters": iters, "lanes": lanes,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "plain_segments": ref_stats["segments"], "max_abs_err": max_abs_err, **t1})
-    check(t1["ok"], "kernel vs plain version at the main path's size (tier 1)")
-    check(abs(segments - ref_stats["segments"]) <= 1e-3 * ref_stats["segments"],
-          "kernel and plain version count different segments")
+          "plain_segments": ref_stats["segments"], "max_abs_err": max_abs_err,
+          "bitwise": main_bitwise, **t1})
+    check(t1["ok"] and main_bitwise, "kernel vs plain version at the main path's size (bitwise)")
+    check(segments == ref_stats["segments"], "kernel and plain version count different segments")
 
     # The bound: 12 bytes written per item and the scene read once, against
     # the operations these paths need (utils/roofline.py) at one issue each.
@@ -396,7 +423,9 @@ def main() -> int:
     k2 = {"name": "persistent_render", "route": "cuda", "source": f"{PKG}/csrc/megakernel.cu",
           "replaces": "cpu_path_tracing_tpu/ops/pallas/megakernel.py:726",
           "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None}
+          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+          "registers": by_name["persistent_render_kernel<u32>"]["registers"],
+          "resident_threads_per_sm": lanes // sms, "occupancy": segments / (iters * lanes)}
 
     # ---- 6. the replay kernel vs its plain version ----
     worst = 0.0
@@ -494,8 +523,11 @@ def main() -> int:
     fwd_ref, fwd_ref_st = mk.persistent_render_reference(table, cam, (0, 0), **kw)
     fwd, fwd_ref = fwd.cpu().numpy(), fwd_ref.cpu().numpy()
     fwd_t1 = tier1(fwd, fwd_ref)
+    fwd_bitwise = bool(np.array_equal(fwd, fwd_ref))
     k2["max_abs_err"] = max(k2["max_abs_err"], float(np.abs(fwd - fwd_ref).max()))
     bwd_ms, (got, st) = cuda_time_ms(lambda: rk.replay_persistent(table, cam, (0, 0), ct, **kw))
+    again, _ = rk.replay_persistent(table, cam, (0, 0), ct, **kw)
+    chunk_repeat = bool(torch.equal(got, again))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     ref, ref_st = rk.replay_persistent_reference(table, cam, (0, 0), ct, **kw)
@@ -505,7 +537,7 @@ def main() -> int:
     dev_rec, blocks_ok, err = replay_deviation(got, ref, sc.num_spheres)
     worst = max(worst, err)
     mean_err = {k: float((params[k] - true[k]).abs().mean()) for k in params}
-    regs = [e for e in ptxas if e["kernel"] == "replay_kernel<8>"]
+    regs = [by_name["replay_kernel<u32,8>"]]
     rec = {"phase": "train_path",
            "config": "box 400x400, 64 total spp, max_depth 100, albedo+emission, Adam lr 1e-2, "
                      "cell_chunk 131072",
@@ -516,29 +548,37 @@ def main() -> int:
            "forward_chunk_vs_plain": {"segments": [int(fwd_st["segments"]),
                                                    fwd_ref_st["segments"]],
                                       "max_abs_err": float(np.abs(fwd - fwd_ref).max()),
-                                      **fwd_t1},
+                                      "bitwise": fwd_bitwise, **fwd_t1},
+           "forward_chunk_occupancy": int(fwd_st["segments"]) / (
+               int(fwd_st["iters"]) * fwd_st["lanes"]),
            "replay_kernel_ms_per_chunk": bwd_ms,
            "replay_plain_ms_per_chunk": bwd_plain_ms, "chunk_items": kw["n_items"],
            "chunk_segments": [int(st["segments"]), ref_st["segments"]],
+           "chunk_prefix_terms": ref_st["prefix_terms"],
            "chunk_lanes": st["lanes"], "chunk_occupancy": int(st["segments"]) / (
                int(st["iters"]) * st["lanes"]),
-           "chunk_blocks": dev_rec, "replay_ptxas": regs, "mean_abs_err_after": mean_err}
+           "chunk_blocks": dev_rec, "chunk_bitwise_repeat": chunk_repeat,
+           "replay_ptxas": regs, "mean_abs_err_after": mean_err}
     rec["ok"] = (per_step == [5] * 5 and all(np.isfinite(losses)) and losses[-1] < losses[0]
-                 and blocks_ok and int(st["segments"]) == ref_st["segments"] and fwd_t1["ok"]
-                 and abs(int(fwd_st["segments"]) - fwd_ref_st["segments"])
-                 <= 1e-3 * fwd_ref_st["segments"])
+                 and blocks_ok and chunk_repeat and int(st["segments"]) == ref_st["segments"]
+                 and fwd_t1["ok"] and fwd_bitwise
+                 and int(fwd_st["segments"]) == fwd_ref_st["segments"])
     emit(rec)
     check(rec["ok"], "the production inverse step")
 
     # One chunk: the cotangent and the scene read once, the partials written
-    # once, against the forward's operations plus the accumulation's.
-    k3_ops = roofline.render_ops(sc.num_spheres, int(st["segments"]), kw["n_items"], replay=True)
+    # once, against the forward's operations plus the accumulation's for the
+    # non-zero prefix terms the plain version counted on this chunk.
+    k3_ops = roofline.render_ops(sc.num_spheres, int(st["segments"]), kw["n_items"],
+                                 replay_prefix_terms=ref_st["prefix_terms"])
     k3_bound, k3_by = roofline.bound_ms(
         4 * (ct.numel() + table.numel() + cam.numel() + got.numel()), k3_ops.issues())
     k3 = {"name": "replay_persistent", "route": "cuda", "source": f"{PKG}/csrc/replay.cu",
           "replaces": "cpu_path_tracing_tpu/ops/pallas/replay_kernel.py:248",
           "launches": k3_launches, "max_abs_err": worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None}
+          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+          "registers": regs[0]["registers"], "resident_threads_per_sm": st["lanes"] // sms,
+          "occupancy": rec["chunk_occupancy"]}
     # ---- 8. the per-step kernel vs its plain step and the whole-render kernel ----
     step_err = 0.0
     for name in tp.scene_names():

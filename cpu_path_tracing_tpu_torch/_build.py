@@ -114,15 +114,17 @@ def load(flags: tuple[str, ...] = FLAGS) -> ctypes.CDLL:
     """Build if needed, load once, and declare the C entry points."""
     lib = ctypes.CDLL(str(build(flags)))
     vp = ctypes.c_void_p
-    lib.pt_persistent_render.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), vp]
+    lib.pt_persistent_render.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_longlong), vp]
     lib.pt_persistent_render.restype = ctypes.c_int
     lib.pt_megakernel_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
                                        ctypes.c_int, vp]
     lib.pt_megakernel_step.restype = ctypes.c_int
-    lib.pt_replay_grid.argtypes = [ctypes.c_int, ctypes.c_longlong,
+    lib.pt_replay_grid.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                    ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
     lib.pt_replay_grid.restype = ctypes.c_int
-    lib.pt_replay_persistent.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp]
+    lib.pt_replay_persistent.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
+                                         vp]
     lib.pt_replay_persistent.restype = ctypes.c_int
     lib.pt_probe_op_chain.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_longlong,
                                       ctypes.c_int, ctypes.c_float, ctypes.c_float,

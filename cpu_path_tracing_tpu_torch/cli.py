@@ -53,7 +53,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     sp.add_argument("--spp", type=int, default=None, help="samples per subpixel cell")
     sp.add_argument("--total-spp", type=int, default=None,
                     help="total spp as in the reference CLI (divided by subpixels^2)")
+    p.add_argument("--subpixels", type=int, default=2, help="subpixels per pixel axis")
     p.add_argument("--max-depth", type=int, default=100)
+    p.add_argument("--rr-depth", type=int, default=4,
+                   help="Russian roulette when depth > this")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the default; fails without a card) or cpu")
@@ -71,7 +74,7 @@ def _parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("render", help="render a registered scene to PNG or PPM")
     _add_common(p)
-    p.add_argument("-o", "--out", default="render.png", help=".png or .ppm")
+    p.add_argument("-o", "--out", default="image.png", help=".png or .ppm")
     p = sub.add_parser("invert", help="inverse rendering (recover scene params)")
     _add_common(p)
     p.add_argument("--steps", type=int, default=100)
@@ -83,23 +86,24 @@ def _parser() -> argparse.ArgumentParser:
     p = sub.add_parser("bench", help="time the per-step wavefront render")
     _add_common(p)
     p.add_argument("--repeats", type=int, default=3)
-    p.add_argument("--suite", action="store_true", help="not ported (ROADMAP.md Queue 1 item 9)")
+    p.add_argument("--suite", action="store_true",
+                   help="not ported (ROADMAP.md Queue 1: the benchmark suite)")
     p.add_argument("--scaling", action="store_true",
-                   help="not ported (ROADMAP.md Queue 1 item 11)")
+                   help="not ported (ROADMAP.md Queue 1: parallel/ on torch.distributed)")
     p.add_argument("--ring", type=int, default=None,
                    help="not ported: the port has no result ring")
     return ap
 
 
 def _config(args) -> RenderConfig:
-    ns = RenderConfig.num_subpixels
     spp = args.spp
     if spp is None:
         total = args.total_spp if args.total_spp is not None else 4
-        spp = max(1, total // (ns * ns))
+        spp = max(1, total // (args.subpixels * args.subpixels))
     lanes = {} if args.lanes is None else {"wavefront_lanes": args.lanes}
     return RenderConfig(width=args.width, height=args.height, spp=spp,
-                        max_depth=args.max_depth, seed=args.seed, integrator=args.integrator,
+                        num_subpixels=args.subpixels, max_depth=args.max_depth,
+                        rr_depth=args.rr_depth, seed=args.seed, integrator=args.integrator,
                         jitter=args.jitter, **lanes)
 
 
@@ -125,6 +129,17 @@ def cmd_render(args) -> int:
     return 0
 
 
+def perturbed_params(true_params: dict, seed: int, perturb: float) -> dict:
+    """``true_params`` plus seeded normal noise, drawn key by key in sorted
+    key order from one NumPy stream (the order in which the JAX CLI's
+    ``jax.tree.map`` visits the dict), so the start does not depend on the
+    order of ``--fields``."""
+    rng = np.random.default_rng(seed)
+    noise = {k: rng.normal(0, perturb, tuple(true_params[k].shape)) for k in sorted(true_params)}
+    return {k: v + torch.as_tensor(noise[k], dtype=v.dtype, device=v.device)
+            for k, v in true_params.items()}
+
+
 def cmd_invert(args) -> int:
     from .grad import check_replay_fields, make_accum_train_step, render_target, split_params
 
@@ -137,10 +152,7 @@ def cmd_invert(args) -> int:
     print(f"target rendered in {time.perf_counter() - t0:.2f}s", file=sys.stderr)
 
     true_params = split_params(scene, fields)
-    rng = np.random.default_rng(args.seed)
-    params = {k: v + torch.as_tensor(rng.normal(0, args.perturb, tuple(v.shape)), dtype=v.dtype,
-                                     device=v.device)
-              for k, v in true_params.items()}
+    params = perturbed_params(true_params, args.seed, args.perturb)
     step_fn = make_accum_train_step(scene, cfg, args.lr, cell_chunk=args.cell_chunk)
     t0 = time.perf_counter()
     for step in range(args.steps):
@@ -156,8 +168,9 @@ def cmd_invert(args) -> int:
 
 def cmd_bench(args) -> int:
     if args.suite or args.scaling or args.ring is not None:
-        raise SystemExit("bench --suite and --scaling are not ported yet (ROADMAP.md Queue 1 "
-                         "items 9 and 11), nor --ring: the port has no result ring")
+        raise SystemExit("bench --suite and --scaling are not ported yet (ROADMAP.md Queue 1: "
+                         "the benchmark suite; parallel/ on torch.distributed), nor --ring: "
+                         "the port has no result ring")
     from .ops.wavefront import render_wavefront, render_wavefront_per_step
     from .render import resolve_integrator
     from .utils.metrics import RenderReport

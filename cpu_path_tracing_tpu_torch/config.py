@@ -39,8 +39,8 @@ class RenderConfig:
     # Cells per render_cells call in render_image; None = the whole image.
     ray_chunk: Optional[int] = None
     # Bounce loop of the plain path.  Only 'while' (early exit) is ported;
-    # the reverse-mode 'scan' loop comes with the geometry backward (ROADMAP.md
-    # Queue 1 item 8).
+    # the reverse-mode 'scan' loop comes with the geometry and camera
+    # backward (ROADMAP.md Queue 1).
     loop: str = "while"
     # 'pallas' = the hand-written CUDA kernels (the JAX name, so configs and
     # CLI flags carry over; on CPU tensors their wrappers run the plain
@@ -49,7 +49,7 @@ class RenderConfig:
     # 'pallas' for a float32, uniform-jitter scene on a CUDA device, else
     # 'wavefront', and on the CPU the plain version of the whole-render
     # kernel (render.resolve_integrator).  'batch' is not ported (ROADMAP.md
-    # Queue 1 item 8).
+    # Queue 1: the geometry and camera backward).
     integrator: str = "auto"
     # Lane-pool width of the per-step paths (render_wavefront and the
     # per-step kernel): items are striped over the pool, item = gen*B + lane.

@@ -34,7 +34,8 @@
 // so a batch of launches can be captured once in a CUDA graph and replayed.
 //
 // start_path and bounce<false> are the whole-render kernel's
-// (csrc/megakernel.cu) unchanged and the build passes -fmad=false, so a
+// (csrc/megakernel.cu, with 64-bit items) and the
+// build passes -fmad=false, so a
 // path rounds alike in both kernels and the per-step render equals the
 // whole-render one bitwise: the JAX package's "persistent == per-step
 // EXACT" invariant.  The TPU kernel's K-slot result ring and watermark
@@ -58,12 +59,9 @@ megakernel_step_kernel(const float* __restrict__ table, const float* __restrict_
                        float* __restrict__ out, unsigned long long* __restrict__ seg,
                        const pt::Params p, const long long lanes, const long long n_gens,
                        const int steps) {
-  extern __shared__ float smem[];
-  float* s_table = smem;
-  float* s_cam = smem + p.n_spheres * pt::kTableCols;
-  for (int i = threadIdx.x; i < p.n_spheres * pt::kTableCols; i += blockDim.x) s_table[i] = table[i];
-  for (int i = threadIdx.x; i < pt::kCamLen; i += blockDim.x) s_cam[i] = cam[i];
-  __syncthreads();
+  extern __shared__ __align__(16) float smem[];
+  const float* s_table = smem;
+  const float* s_cam = pt::load_scene(smem, table, cam, p.n_spheres);
 
   const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   unsigned int live_mask = 0;  // bit j: alive after regeneration in step j
@@ -99,7 +97,7 @@ megakernel_step_kernel(const float* __restrict__ table, const float* __restrict_
         ++gen;
         const long long item = gen * lanes + lane;
         if (item < p.n_items) {
-          pt::start_path(s, item, s_cam, p);
+          pt::start_path<long long>(s, item, s_cam, p);
           alive = true;
         }
       }
@@ -164,7 +162,13 @@ int pt_megakernel_step(const float* table, const float* cam, float* state_f, int
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_gens = (p.n_items + lanes - 1) / lanes;
   const long long blocks = (lanes + kThreads - 1) / kThreads;
-  const size_t smem = static_cast<size_t>(p.n_spheres * pt::kTableCols + pt::kCamLen) * sizeof(float);
+  const size_t smem = static_cast<size_t>(pt::scene_floats(p.n_spheres)) * sizeof(float);
+  if (smem > 48 * 1024) {  // above 48 KB a kernel has to ask
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(megakernel_step_kernel),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   megakernel_step_kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(table, cam, state_f, state_i, out,
                                                                 seg, p, lanes, n_gens, steps);

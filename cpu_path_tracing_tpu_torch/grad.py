@@ -53,7 +53,7 @@ def check_replay_fields(fields) -> None:
     bad = sorted(set(fields) - set(OPTIMIZABLE_REPLAY))
     if bad:
         raise ValueError(f"gradients of {bad} are not ported yet: only {OPTIMIZABLE_REPLAY} "
-                         "(ROADMAP.md Queue 1 item 8: the geometry and camera backward)")
+                         "(ROADMAP.md Queue 1: the geometry and camera backward)")
 
 
 class _RenderSpan(torch.autograd.Function):

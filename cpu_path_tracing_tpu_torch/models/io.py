@@ -3,8 +3,10 @@
 Counterpart of the loading half of ``cpu_path_tracing_tpu/models/io.py``
 (the registered ``clear_light`` and ``greenish_party`` scenes are stored in
 this form).  ``aspect_ratio`` comes from the render resolution at load time.
-Anchors are derived from the camera's look-at point; the ``anchor_dir``
-fields that the JAX package's ``scene_to_dict`` saves are not read yet.
+When every sphere carries the ``anchor_dir`` that the JAX package's
+``scene_to_dict`` saves, those anchors are used, so a saved scene loads to
+the same ``p0``; otherwise anchors are derived from the camera's look-at
+point.
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ def scene_from_dict(d: dict, width: int, height: int, dtype=torch.float32) -> Sc
         origin_advance=c.get("origin_advance", 0.0),
         dtype=dtype,
     )
+    anchor_dirs = None
+    if d["spheres"] and all("anchor_dir" in s for s in d["spheres"]):
+        anchor_dirs = [s["anchor_dir"] for s in d["spheres"]]
     return scene_from_spheres(spheres, camera, dtype=dtype,
                               background=d.get("background", SKY_GRADIENT),
-                              ior=float(d.get("ior", 2.0)))
+                              anchor_dirs=anchor_dirs, ior=float(d.get("ior", 2.0)))
 

@@ -67,10 +67,13 @@ class Scene(nn.Module):
 
 def scene_from_spheres(spheres, camera: CameraConfig, anchor_toward=None,
                        dtype=torch.float32, background=SKY_GRADIENT,
-                       ior: float = 2.0) -> Scene:
+                       anchor_dirs=None, ior: float = 2.0) -> Scene:
     """Build a Scene from (radius, center[3], emission[3], albedo[3], mat_id)
     tuples.  All anchor math is float64 NumPy before the cast to ``dtype``
-    (``cpu_path_tracing_tpu/models/scene.py:144-178``)."""
+    (``cpu_path_tracing_tpu/models/scene.py:144-178``).  ``anchor_dirs``
+    ([N,3] unit vectors) overrides the anchors derived from
+    ``anchor_toward``; ``models/io.py`` passes the saved ones so that a
+    saved scene loads to the same ``p0``."""
     if anchor_toward is None:
         anchor_toward = camera.look_at.detach().cpu().numpy().astype(np.float64)
     else:
@@ -86,11 +89,14 @@ def scene_from_spheres(spheres, camera: CameraConfig, anchor_toward=None,
 
     radii = np.asarray(radii, np.float64)
     centers = np.stack(centers)
-    toward = anchor_toward[None, :] - centers
-    norms = np.linalg.norm(toward, axis=-1, keepdims=True)
-    # Degenerate case (center == point of interest): a fixed axis.
-    anchor_dir = np.where(norms > 0, toward / np.where(norms > 0, norms, 1.0),
-                          np.array([0.0, 0.0, 1.0]))
+    if anchor_dirs is not None:
+        anchor_dir = np.asarray(anchor_dirs, np.float64)
+    else:
+        toward = anchor_toward[None, :] - centers
+        norms = np.linalg.norm(toward, axis=-1, keepdims=True)
+        # Degenerate case (center == point of interest): a fixed axis.
+        anchor_dir = np.where(norms > 0, toward / np.where(norms > 0, norms, 1.0),
+                              np.array([0.0, 0.0, 1.0]))
     p0 = centers + radii[:, None] * anchor_dir
 
     def f(x):

@@ -117,7 +117,8 @@ def radiance(scene, origins, directions, keys, *, max_depth=100, rr_depth=4,
     bounces (int), 'depth': bounce steps run (int)}``."""
     if loop != "while":
         raise ValueError(f"loop={loop!r} is not ported yet; only 'while' "
-                         "(ROADMAP Queue 1 item 8 ports the scan loop)")
+                         "(ROADMAP.md Queue 1, the geometry and camera backward, ports "
+                         "the scan loop)")
     st = init_state(origins, directions)
     kw = dict(rr_depth=rr_depth, epsilon=epsilon, inf=inf)
     segments = 0

@@ -9,19 +9,28 @@ Hopper, ``csrc/megakernel.cu`` around the per-path step math of
 What bounds it on an H100: FP32 and integer ALU work and warp divergence,
 not bytes.  Each path segment costs an N-sphere quadratic, two 13-round
 Threefry blocks and the shading, while the only device-memory traffic is
-12 bytes written per item.  The design answers divergence by regenerating
-in place: a persistent grid of threads each owns one live path, and a
-thread whose path ends starts its next item in the same loop trip, so the
-warp stays in the bounce code together (the TPU kernel's regenerating lane
-pool).  Finished paths write ``out[:, item]`` directly; the TPU kernel's
-result ring, watermark and DMA existed only because TPU scatter is slow.
+12 bytes written per item.  The design answers divergence in the loop of a
+warp: a persistent grid of threads each owns one live path; lanes whose
+path ended sit out the bounces until 6 of the warp's 32 are idle, then
+start their next items together (the TPU kernel's regenerating lane pool,
+refilled in batches), taking them from one queue for the whole launch, so
+lanes and warps share the work whatever their path lengths.  Finished
+paths write ``out[:, item]`` directly; the TPU kernel's result ring,
+watermark and DMA existed only because TPU scatter is slow.  Item indices are 32-bit in the kernel when the span fits
+(``index_bits``): this card emulates 64-bit division.
 
 Stats (``segments``, ``iters``, ``lanes``): ``segments`` counts path
 segments (live paths summed over bounces, an int64 count), ``lanes`` the
-threads launched and ``iters`` the most bounce-loop trips of one thread,
-so ``segments / (iters * lanes)`` is an occupancy: the share of thread
-trips that did work.  The plain version runs all items as one batch per
-chunk: its ``lanes`` is the chunk width and ``iters`` the bounce steps run.
+threads launched and ``iters`` the most bounce phases one warp ran (each
+its threads' trip through the bounce code, alive or sitting out), so
+``segments / (iters * lanes)`` is an occupancy: the share of thread trips
+that did work against the warp that ran longest, and with ``phases`` (the
+bounce phases summed over warps) ``segments / (32 * phases)`` is the SIMT
+efficiency of the bounce.  ``iters`` and ``phases`` belong to the kernel's
+schedule (which warp takes which item from the queue), not to the render:
+nothing holds them equal to another path's count, or to another launch's.
+The plain version runs all items as one batch per chunk: its ``lanes`` is
+the chunk width and ``iters`` the bounce steps run.
 
 ``pack_scene`` / ``pack_camera`` are the host-to-kernel format of the JAX
 package, verbatim: an [N,17] sphere table and a [20] camera vector.
@@ -58,9 +67,11 @@ from ..integrator import RayState, bounce_step, radiance
 
 TABLE_COLS = 17
 CAM_LEN = 20
-# Shared memory the kernel may use without an opt-in: table + camera.
-SMEM_BUDGET = 48 * 1024
-MAX_SPHERES = (SMEM_BUDGET // 4 - CAM_LEN) // TABLE_COLS
+# The most spheres the render kernels take: the [N,17] table and the camera
+# in 48 KB, the bound the first design set itself.  The kernels now hold a
+# sphere as a row of 20 floats in shared memory (csrc/step_math.cuh
+# load_scene), 57,760 bytes at this count, and ask for what is above 48 KB.
+MAX_SPHERES = (48 * 1024 // 4 - CAM_LEN) // TABLE_COLS
 # Steps one launch of the per-step kernel may run (a bit per step in its live mask).
 MAX_STEPS = 32
 # Items per batch of the plain version: bounds its memory on a full image.
@@ -131,7 +142,7 @@ def check_kernel_config(cfg: RenderConfig, dtype: torch.dtype) -> None:
     the rest with the plain wavefront loop.  Nothing falls back after a
     kernel is asked for."""
     todo = ("integrator='wavefront' renders it forward; its replay backward on CUDA "
-            "is ROADMAP.md Queue 1 item 7")
+            "is ROADMAP.md Queue 1: the plain replay on the card")
     if dtype != torch.float32:
         raise ValueError(f"the CUDA kernels are float32, got {dtype}: {todo}")
     if cfg.jitter != "uniform":
@@ -217,6 +228,21 @@ def launch_params(cfg: RenderConfig, dyn, *, n_spheres: int, n_cells: int, n_ite
         ratio_front=float(np.float32(1.0 / ior)), ratio_back=float(np.float32(ior)))
 
 
+def index_bits(params: _Params) -> int:
+    """32 when every index the whole-render and replay kernels form for this
+    launch is below 2^31 (items, the span's and the image's cells, the last
+    sample index), so that they can run on 32-bit arithmetic; else 64."""
+    samples = -(-params.n_items // max(params.n_cells, 1))
+    most = max(params.n_items, params.cell_start + params.n_cells, params.total_cells,
+               params.sample_start + samples)
+    return 32 if most < 2 ** 31 else 64
+
+
+# Zeroed int64 words a launch counts in: segments, iters, the whole-render
+# kernel's item queue, phases (measurement builds count further on).
+COUNTER_WORDS = 4
+
+
 def persistent_render(table, cam, dyn, *, cfg: RenderConfig, n_cells: int, n_items: int,
                       ior: float = 2.0):
     """Render ``n_items`` paths in one kernel launch.
@@ -225,7 +251,8 @@ def persistent_render(table, cam, dyn, *, cfg: RenderConfig, n_cells: int, n_ite
       table: [N,17] (pack_scene); cam: [20] (pack_camera); dyn:
         (cell_start, sample_start) as ints.
     Returns (out [3, n_items], {"segments", "iters", "lanes"}); on CUDA
-    ``segments`` and ``iters`` are 0-d int64 device tensors.
+    ``segments`` and ``iters`` are 0-d int64 device tensors, and ``phases``
+    (the bounce phases summed over warps) is there too.
 
     On CUDA tensors this launches the kernel (float32, contiguous,
     N <= MAX_SPHERES, uniform jitter) or raises.  On CPU tensors it runs
@@ -243,27 +270,28 @@ def persistent_render(table, cam, dyn, *, cfg: RenderConfig, n_cells: int, n_ite
     n = table.shape[0]
     if not 1 <= n <= MAX_SPHERES:
         raise ValueError(f"the CUDA kernel holds 1..{MAX_SPHERES} spheres in shared "
-                         f"memory ({SMEM_BUDGET} bytes), got {n}")
+                         f"memory, got {n}")
     if n_cells < 1 or n_items < 0:
         raise ValueError(f"bad item range: n_cells={n_cells}, n_items={n_items}")
 
     lib = _build.load()
     params = launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
     out = torch.empty((3, n_items), dtype=torch.float32, device=table.device)
-    counters = torch.zeros(2, dtype=torch.int64, device=table.device)
+    counters = torch.zeros(COUNTER_WORDS, dtype=torch.int64, device=table.device)
     lanes = ctypes.c_longlong(0)
     if n_items:
         with torch.cuda.device(table.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.pt_persistent_render(table.data_ptr(), cam.data_ptr(), out.data_ptr(),
                                            counters.data_ptr(), ctypes.addressof(params),
-                                           ctypes.byref(lanes), stream)
+                                           index_bits(params), ctypes.byref(lanes), stream)
         if err != 0:
             raise RuntimeError(f"persistent_render launch failed: "
                                f"{lib.pt_error_string(err).decode()} ({err})")
         persistent_render.launches += 1
     # Device-side counts as 0-d tensors: reading them is the caller's sync.
-    return out, {"segments": counters[0], "iters": counters[1], "lanes": lanes.value}
+    return out, {"segments": counters[0], "iters": counters[1], "lanes": lanes.value,
+                 "phases": counters[3]}
 
 
 persistent_render.launches = 0
@@ -433,7 +461,7 @@ def _step_launcher(state: LaneState, table, cam, dyn, *, cfg: RenderConfig, n_ce
     n = table.shape[0]
     if not 1 <= n <= MAX_SPHERES:
         raise ValueError(f"the CUDA kernel holds 1..{MAX_SPHERES} spheres in shared "
-                         f"memory ({SMEM_BUDGET} bytes), got {n}")
+                         f"memory, got {n}")
     lib = _build.load()
     params = launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
 

@@ -8,20 +8,24 @@ around the forward kernel's step math (``csrc/step_math.cuh``,
 ``bounce<true>`` with its aux outputs).
 
 What bounds it on an H100: the forward kernel's FP32 and integer ALU work
-and divergence, plus the accumulation beside it: per bounce, 7 multiply-adds
-for each sphere of the scene into ``7N+6`` per-thread partials, which with
-``2N`` prefix counters sit in registers (or spill) on top of the forward's
-state.  The design keeps the forward's schedule: a persistent grid, one live
-path per thread, regenerating in place; a regenerating thread reads its
-path's cotangent ``ct[item % n_cells]`` (3 floats) straight from device
-memory, where the TPU kernel needed a K-slot ring because TPU gathers are
-slow.  Gradients are reduced deterministically: each block sums its
-threads' partials in a fixed order and writes one row of a
-``[blocks, 7N+6]`` buffer, which the wrapper sums with plain torch, so two
-launches on the same inputs give bitwise-equal gradients.
+and divergence; the accumulation beside it is a few per cent, but its
+``7N+6`` per-thread partials in registers held the first design to 12
+resident warps an SM.  The design keeps the forward's loop (a persistent
+grid, one live path per thread, a refill phase the warp's idle lanes enter
+together) over warp-owned chunks of items, and moves the partials to shared memory,
+``[k][thread]``; only the ``2N`` prefix counters stay in registers, and a
+bounce adds only to the spheres whose counter is not zero.  A refilling
+lane reads its path's cotangent ``ct[item % n_cells]`` (3 floats) straight
+from device memory, where the TPU kernel needed a K-slot ring because TPU
+gathers are slow.  Gradients are reduced deterministically: which lane
+replays an item is fixed by the launch, each block sums its threads'
+partials in a fixed order and writes one row of a ``[blocks, 7N+6]``
+buffer, which the wrapper sums with plain torch, so two launches on the
+same inputs give bitwise-equal gradients.
 
-Stats (``segments``, ``iters``, ``lanes``) are those of the forward kernel
-(``ops/kernels/megakernel.py``).
+Stats (``segments``, ``iters``, ``lanes``, ``phases``) are those of the
+forward kernel (``ops/kernels/megakernel.py``); here all of them repeat from
+launch to launch, since a warp's items are fixed by the launch.
 """
 
 from __future__ import annotations
@@ -34,18 +38,21 @@ from ... import _build
 from ...config import RenderConfig
 from ..replay import grads_from_partials, n_partials, replay_items
 from .megakernel import (
+    COUNTER_WORDS,
     REFERENCE_CHUNK,
     _check,
     _unpack,
     check_kernel_config,
+    index_bits,
     item_rays,
     launch_params,
     pack_camera,
     pack_scene,
 )
 
-# The per-thread partials and counters are sized by a compile-time bucket
-# of the sphere count (csrc/replay.cu); the largest bucket is the JAX
+# The per-thread counters and the rows of the partials in shared memory are
+# sized by a compile-time bucket of the sphere count (csrc/replay.cu: 8, 16,
+# 40); the largest bucket is the JAX
 # package's VMEM-budget limit, kept so that both packages take the same
 # scenes (cpu_path_tracing_tpu/ops/pallas/replay_kernel.py:68).
 MAX_REPLAY_SPHERES = 40
@@ -60,7 +67,7 @@ def check_replay_config(cfg: RenderConfig, dtype: torch.dtype, n_spheres: int) -
     if not 1 <= n_spheres <= MAX_REPLAY_SPHERES:
         raise ValueError(
             f"the CUDA replay kernel holds 1..{MAX_REPLAY_SPHERES} spheres, got {n_spheres}; "
-            "a larger scene's backward on CUDA is not ported yet (ROADMAP.md Queue 1 item 7: "
+            "a larger scene's backward on CUDA is not ported yet (ROADMAP.md Queue 1: "
             "the plain replay on the card for N > 40)")
 
 
@@ -74,7 +81,9 @@ def _check_ct(ct, table, n_cells: int) -> None:
 def replay_persistent_reference(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells: int,
                                 n_items: int, ior: float = 2.0):
     """Plain PyTorch version of ``replay_persistent``: the same arguments,
-    the same ``[7N+6]`` partials and stats.  The bounce math runs in the
+    the same ``[7N+6]`` partials and stats, and ``prefix_terms`` (the
+    non-zero ``cnt * q`` terms, ``ops/replay.replay_items``: what the bound
+    charges the accumulation).  The bounce math runs in the
     table's dtype (``ops/integrator.bounce_step``), so in float32 its
     decisions are the kernel's; the partials accumulate in float64, over
     ``REFERENCE_CHUNK`` items at a time."""
@@ -83,7 +92,7 @@ def replay_persistent_reference(table, cam, dyn, ct, *, cfg: RenderConfig, n_cel
     spheres, camera = _unpack(table, cam, ior)
     dt, dev = table.dtype, table.device
     total = torch.zeros(n_partials(table.shape[0]), dtype=torch.float64, device=dev)
-    segments = iters = 0
+    segments = iters = prefix_terms = 0
     for i0 in range(0, n_items, REFERENCE_CHUNK):
         i1 = min(i0 + REFERENCE_CHUNK, n_items)
         c_idx, keys, o, d = item_rays(cfg, camera, dyn, n_cells, i0, i1, dt, dev)
@@ -93,7 +102,9 @@ def replay_persistent_reference(table, cam, dyn, ct, *, cfg: RenderConfig, n_cel
         total += part
         segments += st["segments"]
         iters += st["depth"]
-    return total, {"segments": segments, "iters": iters, "lanes": min(REFERENCE_CHUNK, n_items)}
+        prefix_terms += st["prefix_terms"]
+    return total, {"segments": segments, "iters": iters, "lanes": min(REFERENCE_CHUNK, n_items),
+                   "prefix_terms": prefix_terms}
 
 
 def replay_persistent(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells: int, n_items: int,
@@ -133,10 +144,11 @@ def replay_persistent(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells: int, n
     lib = _build.load()
     params = launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
     m = n_partials(n)
-    counters = torch.zeros(2, dtype=torch.int64, device=table.device)
+    counters = torch.zeros(COUNTER_WORDS, dtype=torch.int64, device=table.device)
     blocks, threads = ctypes.c_longlong(0), ctypes.c_int(0)
+    bits = index_bits(params)
     with torch.cuda.device(table.device):
-        err = lib.pt_replay_grid(n, ctypes.c_longlong(n_items), ctypes.byref(blocks),
+        err = lib.pt_replay_grid(n, ctypes.c_longlong(n_items), bits, ctypes.byref(blocks),
                                  ctypes.byref(threads))
         if err != 0:
             raise RuntimeError(f"replay_persistent grid query failed: "
@@ -146,15 +158,16 @@ def replay_persistent(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells: int, n
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.pt_replay_persistent(table.data_ptr(), cam.data_ptr(), ct.data_ptr(),
                                            rows.data_ptr(), counters.data_ptr(),
-                                           ctypes.addressof(params), blocks.value, stream)
+                                           ctypes.addressof(params), bits, blocks.value, stream)
             if err != 0:
                 raise RuntimeError(f"replay_persistent launch failed: "
                                    f"{lib.pt_error_string(err).decode()} ({err})")
             replay_persistent.launches += 1
     # The sum over blocks is the reduction outside the kernel (the JAX
     # wrapper's jnp.sum over the accumulator block), in float64.
-    return rows.sum(dim=0, dtype=torch.float64), {"segments": counters[0], "iters": counters[1],
-                             "lanes": blocks.value * threads.value}
+    return rows.sum(dim=0, dtype=torch.float64), {
+        "segments": counters[0], "iters": counters[1], "lanes": blocks.value * threads.value,
+        "phases": counters[3]}
 
 
 replay_persistent.launches = 0

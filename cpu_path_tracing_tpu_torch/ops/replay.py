@@ -95,7 +95,9 @@ def replay_items(spheres, origins, directions, keys, ct, *, max_depth, rr_depth,
     ``keys`` are the paths' item keys; ``ct`` [B,3] their cotangents.  The
     bounce math runs in the rays' dtype, so its decisions are those of the
     render in that dtype.  Returns (partials, {'segments', 'depth'}) as in
-    ``ops/integrator.radiance``."""
+    ``ops/integrator.radiance``, and 'prefix_terms': the (segment, sphere)
+    pairs with a non-zero prefix counter, the only ones whose ``cnt * q``
+    term is not zero (what the accumulation has to do on this data)."""
     dt = origins.dtype
     n = spheres.albedo.shape[0]
     sphere_ids = torch.arange(n, device=origins.device)
@@ -109,6 +111,7 @@ def replay_items(spheres, origins, directions, keys, ct, *, max_depth, rr_depth,
     kw = dict(rr_depth=rr_depth, epsilon=epsilon, inf=inf)
     st = init_state(origins, directions)
     segments = depth = 0
+    prefix_terms = torch.zeros((), dtype=torch.int64, device=origins.device)
     while depth < max_depth:
         live = int(st.alive.sum())
         if live == 0:
@@ -116,6 +119,7 @@ def replay_items(spheres, origins, directions, keys, ct, *, max_depth, rr_depth,
         segments += live
         u = rng_ops.bounce_uniforms(keys[0], keys[1], depth).to(dt)
         st, aux = bounce_step(spheres, st, u, depth, with_aux=True, **kw)
+        prefix_terms += ((cnt != 0) & aux["was_alive"][:, None]).sum()
 
         hit = aux["was_alive"] & aux["hit"]
         onehot = ((aux["hid"][:, None] == sphere_ids[None, :]) & hit[:, None]).to(acc_dtype)
@@ -136,7 +140,7 @@ def replay_items(spheres, origins, directions, keys, ct, *, max_depth, rr_depth,
         cnt_rr += inc * aux["rr_scaled"][:, None].to(acc_dtype)
         depth += 1
     partials = torch.cat([cq.reshape(-1), rr_w, ge.reshape(-1), gbg.reshape(-1)])
-    return partials, {"segments": segments, "depth": depth}
+    return partials, {"segments": segments, "depth": depth, "prefix_terms": int(prefix_terms)}
 
 
 def replay_param_grads(scene, cfg, cell_ids, sample_start: int, num_samples: int, ct):

@@ -90,14 +90,14 @@ def resolve_integrator(scene, cfg: RenderConfig) -> str:
     * 'plain': 'auto' on the CPU, the plain version of the whole-render
       kernel in the scene's dtype and jitter.
 
-    'batch' and ``loop='scan'`` raise (ROADMAP.md Queue 1 item 8)."""
+    'batch' and ``loop='scan'`` raise (ROADMAP.md Queue 1: the geometry and camera backward)."""
     if cfg.loop != "while":
         raise ValueError(f"loop={cfg.loop!r}: only 'while' is ported (ROADMAP.md "
-                         "Queue 1 item 8 brings the scan loop)")
+                         "Queue 1: the geometry and camera backward brings the scan loop)")
     integ = cfg.integrator
     if integ == "batch":
-        raise ValueError("integrator='batch' is not ported (ROADMAP.md Queue 1 item 8: it "
-                         "comes with the scan loop)")
+        raise ValueError("integrator='batch' is not ported (ROADMAP.md Queue 1: it "
+                         "comes with the scan loop of the geometry and camera backward)")
     if integ not in ("auto", "wavefront", "pallas"):
         raise ValueError(f"unknown integrator {integ!r}: 'auto', 'wavefront' or 'pallas'")
     if integ == "auto":

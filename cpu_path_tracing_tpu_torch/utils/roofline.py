@@ -5,9 +5,10 @@ input read once, each output written once) over the card's published
 memory rate, and the operations it does on these inputs over the card's
 published rate for their type (``bound_ms``).  For the render kernels the
 work depends on the data, so the operations are counted per path segment,
-per continuing segment and per item from the expression chains of
-``csrc/step_math.cuh`` (``segment_ops`` and friends) and multiplied by
-what a run measured.  The same counts times the per-op times that
+per continuing segment, per item and, for the replay, per non-zero term of
+its accumulation, from the expression chains of ``csrc/step_math.cuh`` and
+``csrc/replay.cu`` (``segment_ops`` and friends), and multiplied by what a
+run measured.  The same counts times the per-op times that
 ``scripts/torch_perf_probe.py`` measures give the probe-model time
 (``probe_model_ms``): what the card's own measured rates allow, without
 divergence or idle threads.  ``CHAIN_OPS`` counts one application of each
@@ -60,13 +61,14 @@ class OpCounts(NamedTuple):
 
 
 def segment_ops(n_spheres: int) -> OpCounts:
-    """What every path segment does in ``pt::bounce``: two Threefry blocks
-    and three uniforms (1 + 9), the ray's squared length and its reciprocal
-    (5, one division), per sphere the anchor-point quadratic and its root
-    choice (52, one square root, one division), and 1/|d| (2, one square
-    root, one division)."""
-    return OpCounts(simple=17 + 52 * n_spheres, threefry=2, sqrt=n_spheres + 1,
-                    div=n_spheres + 2)
+    """What every path segment does in ``pt::bounce``: one Threefry block
+    and two uniforms (1 + 6; the second block belongs to the diffuse
+    sampler, which the least continuing segment does not run), the ray's
+    squared length and its reciprocal (5, one division), and per sphere the
+    anchor-point quadratic and its root choice (``pt::hit_sphere``: 48, one
+    square root, one division)."""
+    return OpCounts(simple=12 + 48 * n_spheres, threefry=1, sqrt=n_spheres,
+                    div=n_spheres + 1)
 
 
 def continue_ops() -> OpCounts:
@@ -77,28 +79,52 @@ def continue_ops() -> OpCounts:
 
 
 def item_ops() -> OpCounts:
-    """``pt::start_path``, once per item: the item key and the lens pair
-    (two blocks, four uniforms), the cell's screen position and the
-    thin-lens ray."""
-    return OpCounts(simple=70, threefry=2, sqrt=1, sincos=2)
+    """``pt::start_path``, once per item: the item's cell, sample, pixel and
+    subpixel by four integer divisions, each with a multiply and a subtract
+    for its remainder, the clamp and two adds (4 divisions, 11); the item
+    key and the lens pair (two blocks, four uniforms: 12); four conversions,
+    the cell's screen position (10) and the thin-lens ray (41, one square
+    root, a sine and a cosine).  How a kernel hands items to its threads
+    (a queue, a stride, a lane's rank among the idle) is its design's own
+    and is not charged."""
+    return OpCounts(simple=78, threefry=2, sqrt=1, div=4, sincos=2)
 
 
-def replay_segment_ops(n_spheres: int) -> OpCounts:
-    """What the replay kernel adds to every segment: the cotangent times
-    the throughput and the pickup (8), per sphere the four weighted
-    accumulations and the hit test (9), and the emission partial (3)."""
-    return OpCounts(simple=11 + 9 * n_spheres)
+def replay_segment_ops() -> OpCounts:
+    """What the replay adds to every segment: the cotangent times the
+    throughput and the pickup, and their sum (8), and the emission or
+    background partial (3)."""
+    return OpCounts(simple=11)
 
 
-def render_ops(n_spheres: int, segments: int, n_items: int, *, replay: bool = False) -> OpCounts:
+def replay_prefix_term_ops() -> OpCounts:
+    """One non-zero ``cnt * q`` term: a sphere the path has hit and continued
+    from adds four products to its four partials (8).  A sphere whose
+    counter is zero adds ``0 * q`` and is not charged."""
+    return OpCounts(simple=8)
+
+
+def replay_continue_ops() -> OpCounts:
+    """A continuing segment counts its sphere (the roulette counter only
+    after a roulette: the least is 1)."""
+    return OpCounts(simple=1)
+
+
+def render_ops(n_spheres: int, segments: int, n_items: int, *,
+               replay_prefix_terms: int | None = None) -> OpCounts:
     """The operations of a render of ``n_items`` paths that took
     ``segments`` segments in all (each path's last segment does not go on).
-    With ``replay``, the replay kernel's accumulation as well."""
-    per_segment = segment_ops(n_spheres)
-    if replay:
-        per_segment = per_segment.plus(replay_segment_ops(n_spheres))
-    return (per_segment.times(segments).plus(continue_ops().times(segments - n_items))
-            .plus(item_ops().times(n_items)))
+    With ``replay_prefix_terms``, the replay kernel's accumulation as well:
+    the count of (segment, sphere) pairs with a non-zero prefix counter that
+    the plain replay measured on this data (``ops/replay.replay_items``)."""
+    per_segment, per_continue = segment_ops(n_spheres), continue_ops()
+    extra = OpCounts()
+    if replay_prefix_terms is not None:
+        per_segment = per_segment.plus(replay_segment_ops())
+        per_continue = per_continue.plus(replay_continue_ops())
+        extra = replay_prefix_term_ops().times(replay_prefix_terms)
+    return (per_segment.times(segments).plus(per_continue.times(segments - n_items))
+            .plus(item_ops().times(n_items)).plus(extra))
 
 
 # One application of each op chain of ``ops/kernels/probe.py``, by the
@@ -161,16 +187,19 @@ _INSTRUCTION = re.compile(
 
 
 def kernel_label(mangled: str) -> str:
-    """``replay_kernel<8>`` from a mangled entry name: the ``*_kernel``
+    """``replay_kernel<u32,8>`` from a mangled entry name: the ``*_kernel``
     function (found by its length prefix, which may follow the hex digits
-    of an anonymous namespace's name) and its integer template arguments."""
+    of an anonymous namespace's name) and its template arguments: integers,
+    and the index types ``u32`` (unsigned int) and ``i64`` (long long)."""
+    types = {"j": "u32", "x": "i64"}
     for run in re.finditer(r"\d+", mangled):
         for start in range(run.start(), run.end()):
             name = mangled[run.end():run.end() + int(mangled[start:run.end()])]
             if name.endswith("_kernel") and re.fullmatch(r"[a-z][a-z0-9_]*", name):
-                args = re.match(r"I((?:Li\d+E)+)E", mangled[run.end() + len(name):])
-                ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
-                return name + (f"<{','.join(ints)}>" if ints else "")
+                args = re.match(r"I((?:[jx]|Li\d+E)+)E", mangled[run.end() + len(name):])
+                found = re.findall(r"[jx]|Li\d+E", args.group(1)) if args else []
+                labels = [types[a] if a in types else a[2:-1] for a in found]
+                return name + (f"<{','.join(labels)}>" if labels else "")
     return mangled
 
 

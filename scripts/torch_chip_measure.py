@@ -2,7 +2,7 @@
 """Measurements of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 scripts/torch_chip_measure.py
-        [--part build|fmad|profile|scenes|train|step|probe|stream|all]
+        [--part build|fmad|profile|scenes|train|step|probe|stream|simt|designs|all]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
@@ -50,6 +50,26 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   each held bitwise to ``2 * x`` at 2^26 float32 and timed in 5 rounds of
   20 launches with ``torch.mul(x, 2.0, out=y)`` before and after every
   round: least, median and greatest ms and the median's GB/s, fastest first.
+- simt: the render kernels measuring themselves (the machine has no ncu or
+  nsys).  Builds the kernels with ``-DPT_SIMT_PROBE`` (the sections of
+  ``csrc/step_math.cuh``) and launches the forward kernel on the main path
+  (disco 1024x768, 32 spp, depth 100) and on one chunk of the production
+  inverse step (box 400x400, 64 spp, 131,072 cells), and the replay kernel
+  on that chunk.  Per section: the warp-level executions, the active lanes,
+  the SIMT efficiency (lanes / (32 x executions)), the SM cycles warps
+  spent there and their share of the warps' whole stay in the kernel; then
+  the launch's segments, occupancy and ms with the probe and, from the
+  production build, without it.  Not part of ``all``.
+- designs: the forward and replay kernels built with other numbers of idle
+  lanes that make a warp refill (``-DPT_REFILL_MIN=n``, the one design
+  parameter ``csrc/step_math.cuh`` leaves to the build), each held to the
+  production build (forward ``out`` bitwise on disco and the box chunk;
+  replay partials within the block limits of its plain version, two
+  launches bitwise equal) and timed on the three launches of ``simt`` and on
+  the replay kernel's other two buckets (smallpt, 10 spheres, and the first
+  40 spheres of random_spheres, each on a chunk of the same size): median of
+  3 kernel launches, with registers and spills from ptxas, segments and
+  occupancy.  ``--variants a,b`` picks some.  Not part of ``all``.
 
 Imports nothing of JAX.  Needs a CUDA device.
 """
@@ -82,8 +102,14 @@ MAIN = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
 VARIANTS = {"nofma": _build.FLAGS, "fma": tuple(f for f in _build.FLAGS if f != "-fmad=false")}
 
 
+OUT = None  # --out: a file that also gets every JSON line
+
+
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
+    if OUT:
+        with open(OUT, "a") as fh:
+            fh.write(json.dumps(record) + "\n")
 
 
 def smi() -> str:
@@ -436,6 +462,196 @@ def part_stream(dev):
           "bitwise_equal_to_2x": True})
 
 
+SECTIONS = ("regen", "intersect", "miss", "shade", "roulette", "diffuse", "specular",
+            "dielectric", "update", "retire", "accumulate", "warp")
+SIMT_BASE = 4  # pt::kSimtBase: the probe's first word in ``counters``
+SIMT_FLAGS = (*_build.FLAGS, "-DPT_SIMT_PROBE")
+
+
+def simt_launch(lib, kernel: str, table, cam, dyn, cfg, n_cells: int, n_items: int, ior, ct=None):
+    """One launch of ``kernel`` ('forward' or 'replay') from ``lib`` with a
+    ``counters`` buffer wide enough for the probe's sums.  Returns
+    (counters as a list of ints, lanes, CUDA-event ms)."""
+    from cpu_path_tracing_tpu_torch.ops.replay import n_partials
+
+    dev, n = table.device, table.shape[0]
+    params = mk.launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
+    counters = torch.zeros(SIMT_BASE + 3 * len(SECTIONS), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if kernel == "forward":
+        out = torch.empty((3, n_items), dtype=torch.float32, device=dev)
+        lanes = ctypes.c_longlong(0)
+        a.record()
+        err = lib.pt_persistent_render(table.data_ptr(), cam.data_ptr(), out.data_ptr(),
+                                       counters.data_ptr(), ctypes.addressof(params),
+                                       mk.index_bits(params), ctypes.byref(lanes), stream)
+        b.record()
+        lanes = lanes.value
+    else:
+        blocks, threads = ctypes.c_longlong(0), ctypes.c_int(0)
+        bits = mk.index_bits(params)
+        err = lib.pt_replay_grid(n, ctypes.c_longlong(n_items), bits, ctypes.byref(blocks),
+                                 ctypes.byref(threads))
+        if err != 0:
+            raise RuntimeError(f"replay grid query failed ({err})")
+        rows = torch.zeros((blocks.value, n_partials(n)), dtype=torch.float32, device=dev)
+        a.record()
+        err = lib.pt_replay_persistent(table.data_ptr(), cam.data_ptr(), ct.data_ptr(),
+                                       rows.data_ptr(), counters.data_ptr(),
+                                       ctypes.addressof(params), bits, blocks.value, stream)
+        b.record()
+        lanes = blocks.value * threads.value
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: {lib.pt_error_string(err).decode()} ({err})")
+    torch.cuda.synchronize()
+    return [int(v) for v in counters.tolist()], lanes, a.elapsed_time(b)
+
+
+def simt_table(counters) -> dict:
+    """The probe's sums per section, with each section's SIMT efficiency
+    and its share of the cycles warps spent in the kernel."""
+    rows = {name: counters[SIMT_BASE + 3 * k:SIMT_BASE + 3 * k + 3]
+            for k, name in enumerate(SECTIONS)}
+    warp_cycles = rows["warp"][2]
+    out = {}
+    for name, (execs, lanes, cycles) in rows.items():
+        if execs:
+            out[name] = {"executions": execs, "active_lanes": lanes,
+                         "simt_efficiency": lanes / (32 * execs), "cycles": cycles,
+                         "share_of_warp_cycles": cycles / warp_cycles if warp_cycles else None}
+    measured = sum(v["cycles"] for k, v in out.items() if k != "warp")
+    out["unattributed_share"] = 1 - measured / warp_cycles if warp_cycles else None
+    return out
+
+
+def part_simt(dev):
+    probe_lib, plain_lib = _build.load(SIMT_FLAGS), _build.load()
+    log = _build.build(SIMT_FLAGS).with_suffix(".log").read_text()
+    emit({"simt_build_ptxas": [ln.strip() for ln in log.splitlines()
+                               if "registers" in ln or "spill" in ln][:12]})
+    box_cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    chunk = 1 << 17
+    cases = []
+    table, cam, kw = packed("box_mirror", MAIN, dev)
+    cases.append(("disco 1024x768, 32 spp, depth 100", "forward", table, cam, MAIN,
+                  kw["n_cells"], kw["n_items"], kw["ior"]))
+    table, cam, kw = packed("box", box_cfg, dev)
+    for kernel in ("forward", "replay"):
+        cases.append(("box 400x400 chunk of 131,072 cells, 16 samples, depth 100", kernel, table,
+                      cam, box_cfg, chunk, box_cfg.spp * chunk, kw["ior"]))
+    ct = torch.from_numpy(np.random.default_rng(11).normal(0, 1, (chunk, 3))
+                          .astype(np.float32)).to(dev)
+    for what, kernel, table, cam, cfg, n_cells, n_items, ior in cases:
+        args = (kernel, table, cam, (0, 0), cfg, n_cells, n_items, ior, ct)
+        simt_launch(probe_lib, *args)  # warm-up
+        counters, lanes, probe_ms = simt_launch(probe_lib, *args)
+        simt_launch(plain_lib, *args)
+        plain = [simt_launch(plain_lib, *args) for _ in range(3)]
+        segments, iters = plain[0][0][0], plain[0][0][1]
+        emit({"simt": what, "kernel": kernel, "spheres": int(table.shape[0]), "n_items": n_items,
+              "segments": segments, "segments_per_item": segments / n_items, "iters": iters,
+              "lanes": lanes, "occupancy": segments / (iters * lanes),
+              "probe_segments": counters[0], "ms_with_probe": probe_ms,
+              "ms_production_build": sorted(ms for _, _, ms in plain),
+              "sections": simt_table(counters)})
+
+
+DESIGNS = {"production": (),
+           **{f"refill_{n}": (f"-DPT_REFILL_MIN={n}",) for n in (1, 4, 8, 12, 16, 32)}}
+
+
+def render_kernel_ptxas(flags) -> dict:
+    """Registers and spill line of every instantiation of the forward and
+    replay kernels in the build log of ``flags``."""
+    log = _build.build(flags).with_suffix(".log").read_text().splitlines()
+    out, name = {}, None
+    for ln in log:
+        if "Compiling entry function" in ln:
+            name = roofline.kernel_label(ln.split("'")[1])
+        elif name and "spill" in ln:
+            out.setdefault(name, {})["spills"] = ln.strip()
+        elif name and "registers" in ln:
+            out.setdefault(name, {})["registers"] = int(ln.split("Used ")[1].split(" registers")[0])
+    return {k: v for k, v in out.items() if k.startswith(("persistent_render", "replay_kernel"))}
+
+
+def first_spheres(name: str, n: int, cfg):
+    """The scene ``name`` cut to its first ``n`` spheres (the replay kernel
+    takes at most 40; no registered scene has between 11 and 40)."""
+    full = tp.get_scene(name, cfg.width, cfg.height)
+    spheres = [(float(full.radius[i]),
+                (full.p0[i] - full.radius[i] * full.anchor_dir[i]).tolist(),
+                full.emission[i].tolist(), full.albedo[i].tolist(), int(full.material[i]))
+               for i in range(n)]
+    return tp.scene_from_spheres(spheres, full.camera, background=full.background.tolist(),
+                                 ior=full.ior)
+
+
+def part_designs(dev, names=None):
+    from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
+    from cpu_path_tracing_tpu_torch.ops.replay import partial_blocks
+
+    box_cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    chunk = 1 << 17
+    disco = packed("box_mirror", MAIN, dev)
+    box = packed("box", box_cfg, dev)
+    chunk_kw = dict(cfg=box_cfg, n_cells=chunk, n_items=box_cfg.spp * chunk)
+    box_kw = dict(chunk_kw, ior=box[2]["ior"])
+    ct = torch.from_numpy(np.random.default_rng(11).normal(0, 1, (chunk, 3))
+                          .astype(np.float32)).to(dev)
+    want = {"disco": mk.persistent_render(disco[0], disco[1], (0, 0), **disco[2])[0],
+            "box": mk.persistent_render(box[0], box[1], (0, 0), **box_kw)[0]}
+    # The replay kernel's three buckets: box (8 spheres), smallpt (10: the
+    # bucket of 16) and the first 40 spheres of random_spheres, each on a
+    # chunk of the production inverse step's size, each with its plain
+    # version's partials.
+    forty = first_spheres("random_spheres", 40, box_cfg)
+    smallpt = tp.get_scene("smallpt", box_cfg.width, box_cfg.height)
+    replays = {"k3_box_chunk": (box[0], box[1], box_kw)}
+    for what, scene in (("k3_smallpt_chunk", smallpt), ("k3_40_spheres_chunk", forty)):
+        replays[what] = (mk.pack_scene(scene).to(dev), mk.pack_camera(scene).to(dev),
+                         dict(chunk_kw, ior=scene.ior))
+    refs = {what: rk.replay_persistent_reference(table, cam, (0, 0), ct, **kw)
+            for what, (table, cam, kw) in replays.items()}
+    for name in names or DESIGNS:
+        flags = (*_build.FLAGS, *DESIGNS[name])
+        t0 = time.perf_counter()
+        lib = _build.load(flags)
+        build_s = time.perf_counter() - t0
+        rec = {"design": name, "flags": list(DESIGNS[name]), "build_s": build_s,
+               "ptxas": render_kernel_ptxas(flags)}
+        with kernel_variant(flags):
+            got = {"disco": mk.persistent_render(disco[0], disco[1], (0, 0), **disco[2]),
+                   "box": mk.persistent_render(box[0], box[1], (0, 0), **box_kw)}
+            parts = {what: [rk.replay_persistent(table, cam, (0, 0), ct, **kw) for _ in range(2)]
+                     for what, (table, cam, kw) in replays.items()}
+        rec["forward_bitwise"] = {k: bool(torch.equal(v[0], want[k])) for k, v in got.items()}
+        launches = [("k2_disco", "forward", disco[0], disco[1], disco[2]),
+                    ("k2_box_chunk", "forward", box[0], box[1], box_kw)]
+        launches += [(what, "replay", *case) for what, case in replays.items()]
+        for what, kernel, table, cam, kw in launches:
+            args = (kernel, table, cam, (0, 0), kw["cfg"], kw["n_cells"], kw["n_items"],
+                    kw["ior"], ct)
+            simt_launch(lib, *args)
+            runs = [simt_launch(lib, *args) for _ in range(3)]
+            counters, lanes, _ = runs[0]
+            rec[what] = {"ms": sorted(ms for _, _, ms in runs)[1], "segments": counters[0],
+                         "iters": counters[1], "lanes": lanes,
+                         "occupancy": counters[0] / (counters[1] * lanes),
+                         "lane_efficiency": counters[0] / (32 * counters[3])}
+            if kernel == "replay":
+                (part, st), (again, _) = parts[what]
+                ref, ref_st = refs[what]
+                worst = max(float((part[sl] - ref[sl]).abs().max())
+                            / (1e-4 * float(ref[sl].abs().max()) + 1e-7)
+                            for sl in partial_blocks(table.shape[0]).values())
+                rec[what].update(spheres=int(table.shape[0]), worst_share_of_tolerance=worst,
+                                 bitwise_repeat=bool(torch.equal(part, again)),
+                                 segments_equal=int(st["segments"]) == ref_st["segments"])
+        emit(rec)
+
+
 def part_scenes(dev):
     for name in tp.scene_names():
         if name == "disco_sphere":  # the alias of box_mirror
@@ -453,8 +669,17 @@ def part_scenes(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "step",
-                                       "probe", "stream", "all"), default="all")
+                                       "probe", "stream", "simt", "designs", "all"),
+                    default="all")
+    ap.add_argument("--variants", default=None,
+                    help="--part designs: comma-separated names of DESIGNS (default: all)")
+    ap.add_argument("--out", default=None,
+                    help="also append every JSON line to this file (its directory is made)")
     args = ap.parse_args()
+    if args.out:
+        global OUT
+        OUT = args.out
+        os.makedirs(os.path.dirname(os.path.abspath(OUT)), exist_ok=True)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -465,6 +690,10 @@ def main() -> int:
                       ("probe", part_probe), ("stream", part_stream)):
         if args.part in (part, "all"):
             run(dev)
+    if args.part == "simt":
+        part_simt(dev)
+    if args.part == "designs":
+        part_designs(dev, args.variants.split(",") if args.variants else None)
     print("smi", smi(), flush=True)
     return 0
 

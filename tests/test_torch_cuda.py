@@ -62,6 +62,71 @@ def test_regenerating_launch_matches_plain_version(cuda):
     assert np.quantile(dev, 0.999) < 1e-5 and np.mean(dev > 1e-3) < 1e-3
 
 
+@pytest.mark.parametrize("n_cells, samples", [(12_345, 3), (7, 3), (1, 1), (33, 1)])
+def test_odd_sized_spans_match_plain_version_bitwise(cuda, n_cells, samples):
+    """Spans whose item count is no multiple of 32, or smaller than a warp:
+    the last chunk a warp owns is ragged, and some warps own nothing.  The
+    forward kernel bitwise; the replay kernel, whose warp-owned item map
+    (csrc/replay.cu: owned_positions, item_at) must reach every item once,
+    with the plain version's segment count and within its block limits."""
+    cfg = tp.RenderConfig(width=256, height=192, spp=8, max_depth=100)
+    scene = tp.get_scene("box_mirror", 256, 192)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), (777, 3))
+    kw = dict(cfg=cfg, n_cells=n_cells, n_items=samples * n_cells, ior=scene.ior)
+    got, st = mk.persistent_render(*args, **kw)
+    ref, ref_st = mk.persistent_render_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and int(st["segments"]) == ref_st["segments"]
+    ct = torch.from_numpy(np.random.default_rng(n_cells).normal(0, 1, (n_cells, 3))
+                          .astype(np.float32)).to(cuda)
+    part, pst = rk.replay_persistent(*args, ct, **kw)
+    want, want_st = rk.replay_persistent_reference(*args, ct, **kw)
+    assert int(pst["segments"]) == want_st["segments"] == ref_st["segments"]
+    for name, sl in partial_blocks(scene.num_spheres).items():
+        g, r = part[sl].cpu(), want[sl].cpu()
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max()) + 1e-7, name
+
+
+def test_spans_past_two_to_the_31_take_the_64_bit_kernels(cuda):
+    """A 32768 x 32768 image has 2^32 cells: a span past 2^31 makes the
+    wrappers choose 64-bit items.  Forward bitwise, replay within its block
+    limits and repeating bitwise."""
+    cfg = tp.RenderConfig(width=32768, height=32768, spp=8, max_depth=100)
+    scene = tp.get_scene("box", cfg.width, cfg.height)
+    dyn, n_cells = (2**31 + 12_345, 3), 5_000
+    params = mk.launch_params(cfg, dyn, n_spheres=scene.num_spheres, n_cells=n_cells,
+                              n_items=2 * n_cells, ior=scene.ior)
+    assert mk.index_bits(params) == 64
+    ct = np.random.default_rng(4).normal(0, 1, (n_cells, 3)).astype(np.float32)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), dyn)
+    kw = dict(cfg=cfg, n_cells=n_cells, n_items=2 * n_cells, ior=scene.ior)
+    got, st = mk.persistent_render(*args, **kw)
+    ref, ref_st = mk.persistent_render_reference(*args, **kw)
+    assert torch.equal(got, ref) and int(st["segments"]) == ref_st["segments"]
+    part, pst = rk.replay_persistent(*args, torch.from_numpy(ct).to(cuda), **kw)
+    again, _ = rk.replay_persistent(*args, torch.from_numpy(ct).to(cuda), **kw)
+    want, want_st = rk.replay_persistent_reference(*args, torch.from_numpy(ct).to(cuda), **kw)
+    assert torch.equal(part, again) and int(pst["segments"]) == want_st["segments"]
+    for name, sl in partial_blocks(scene.num_spheres).items():
+        g, r = part[sl].cpu(), want[sl].cpu()
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max()) + 1e-7, name
+
+
+@pytest.mark.parametrize("name", ["box_mirror", "simple", "smallpt_exact", "random_spheres"])
+def test_kernel_is_bitwise_equal_to_plain_version(cuda, name):
+    """Scenes of 8, 5, 10 and 100 spheres (the sphere loop takes one sphere a
+    trip, whatever the count) at max_depth 100: every item bitwise, segments
+    equal."""
+    cfg = tp.RenderConfig(width=32, height=24, spp=2, max_depth=100)
+    scene = tp.get_scene(name, 32, 24)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), (0, 0))
+    kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=2 * cfg.num_cells, ior=scene.ior)
+    got, st = mk.persistent_render(*args, **kw)
+    ref, ref_st = mk.persistent_render_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and int(st["segments"]) == ref_st["segments"]
+
+
 def test_render_image_launches_the_kernel(cuda):
     cfg = tp.RenderConfig(width=32, height=24, spp=2, max_depth=16)
     before = mk.persistent_render.launches
@@ -233,6 +298,48 @@ def test_replay_kernel_is_bitwise_repeatable(cuda):
     first, _ = rk.replay_persistent(*args, **kw)
     second, _ = rk.replay_persistent(*args, **kw)
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("n_spheres", [12, 16, 23, 40])
+def test_replay_kernel_buckets_above_eight_spheres(cuda, n_spheres):
+    """The 16- and 40-sphere buckets (their partials ask for more than 48 KB
+    of shared memory) on the first spheres of random_spheres: the block
+    limits, segments equal, two launches bitwise equal, odd item count."""
+    full = tp.get_scene("random_spheres", 64, 48)
+    spheres = [(float(full.radius[i]),
+                (full.p0[i] - full.radius[i] * full.anchor_dir[i]).tolist(),
+                full.emission[i].tolist(), full.albedo[i].tolist(), int(full.material[i]))
+               for i in range(n_spheres)]
+    scene = tp.scene_from_spheres(spheres, full.camera)
+    cfg = tp.RenderConfig(width=64, height=48, spp=3, max_depth=100)
+    n_cells = cfg.num_cells - 5
+    ct = np.random.default_rng(3).normal(0, 1, (n_cells, 3)).astype(np.float32)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), (5, 1),
+            torch.from_numpy(ct).to(cuda))
+    kw = dict(cfg=cfg, n_cells=n_cells, n_items=3 * n_cells, ior=scene.ior)
+    got, st = rk.replay_persistent(*args, **kw)
+    again, _ = rk.replay_persistent(*args, **kw)
+    ref, ref_st = rk.replay_persistent_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and int(st["segments"]) == ref_st["segments"]
+    for name, sl in partial_blocks(n_spheres).items():
+        g, r = got[sl].cpu(), ref[sl].cpu()
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max()) + 1e-7, name
+
+
+def test_replay_kernel_repeats_bitwise_on_a_full_train_chunk(cuda):
+    """The production inverse step's chunk (box 400x400, 131,072 cells, 16
+    samples, max_depth 100): two launches give bitwise-equal partials."""
+    cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    scene = tp.get_scene("box", 400, 400)
+    chunk = 1 << 17
+    ct = np.random.default_rng(9).normal(0, 1, (chunk, 3)).astype(np.float32)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), (0, 0),
+            torch.from_numpy(ct).to(cuda))
+    kw = dict(cfg=cfg, n_cells=chunk, n_items=cfg.spp * chunk, ior=scene.ior)
+    first, st = rk.replay_persistent(*args, **kw)
+    second, _ = rk.replay_persistent(*args, **kw)
+    assert torch.equal(first, second) and st["lanes"] < kw["n_items"]
 
 
 @pytest.mark.parametrize("n_arrays", [2, 8])

@@ -112,3 +112,53 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found.*sm_90a"):
         _build.build()
     assert list(tmp_path.iterdir()) == []
+
+
+# ---- the launch rules of the redesigned kernels (no card needed) ----
+
+def _params(n_items, n_cells, cell_start=0, sample_start=0, width=1024, height=768):
+    cfg = tp.RenderConfig(width=width, height=height, spp=1)
+    return mk.launch_params(cfg, (cell_start, sample_start), n_spheres=8, n_cells=n_cells,
+                            n_items=n_items, ior=2.0)
+
+
+@pytest.mark.parametrize("kw, bits", [
+    (dict(n_items=25_165_824, n_cells=3_145_728), 32),        # the main path
+    (dict(n_items=2_097_152, n_cells=131_072), 32),           # a train chunk
+    (dict(n_items=2**31 - 1, n_cells=2**31 - 1), 32),
+    (dict(n_items=2**31, n_cells=2**20), 64),                 # items
+    (dict(n_items=2**20, n_cells=2**20, cell_start=2**31 - 2**20), 64),  # the span's last cell
+    (dict(n_items=2**20, n_cells=2**20, cell_start=2**31 - 2**20 - 1), 32),
+    (dict(n_items=64, n_cells=16, sample_start=2**31 - 4), 64),          # the last sample
+    (dict(n_items=64, n_cells=16, sample_start=2**31 - 5), 32),
+    (dict(n_items=64, n_cells=16, width=32768, height=32768), 64),       # the image's cells
+])
+def test_index_bits_follow_the_span(kw, bits):
+    """The kernels index in 32 bits exactly when every index they form for
+    the launch is below 2^31."""
+    assert mk.index_bits(_params(**kw)) == bits
+
+
+@pytest.mark.parametrize("n_items, warps", [(1, 8), (21, 8), (31, 1), (32, 4), (33, 4),
+                                            (24_690, 776), (300_002, 4224), (4224 * 32 * 3, 4224),
+                                            (1_000_003, 1584)])
+def test_warp_owned_items_cover_every_item_once(n_items, warps):
+    """A NumPy model of the replay kernel's item map (csrc/replay.cu:
+    owned_positions, item_at), not a call into it: warp w of W walks chunks
+    w, w + W, ... of 32 consecutive items.  In the model every item below
+    n_items belongs to exactly one position of one warp, and a warp meets
+    its items in ascending order.  That the CUDA source follows the model is
+    checked on the card, where a wrong map loses or repeats segments
+    (tests/test_torch_cuda.py: the replay kernel's segment count against its
+    plain version's on ragged spans)."""
+    log2 = 5
+    chunks = (n_items + (1 << log2) - 1) >> log2
+    seen = np.zeros(n_items, np.int64)
+    for w in range(warps):
+        owned = ((chunks - w + warps - 1) // warps if w < chunks else 0) << log2
+        pos = np.arange(owned, dtype=np.int64)
+        item = (((pos >> log2) * warps + w) << log2) | (pos & ((1 << log2) - 1))
+        assert np.all(np.diff(item) > 0)
+        item = item[item < n_items]
+        seen[item] += 1
+    assert np.all(seen == 1)

@@ -114,6 +114,27 @@ def test_wrapper_on_cpu_runs_the_plain_version(monkeypatch):
     assert torch.equal(got, ref) and stats == ref_stats
 
 
+@pytest.mark.parametrize("depth", [1, 2, 12])
+def test_plain_version_counts_the_nonzero_prefix_terms(depth):
+    """``prefix_terms`` is what the bound charges the accumulation: no term
+    on a path's first segment (no sphere has been continued from), exactly
+    one on every second segment, and from then on at least one and at most
+    min(N, segments so far) a segment."""
+    cfg = tp.RenderConfig(width=8, height=6, spp=1, max_depth=depth)
+    scene = tp.get_scene("box", 8, 6)
+    n = cfg.num_cells
+    ct = torch.ones((n, 3))
+    _, st = rk.replay_persistent_reference(mk.pack_scene(scene), mk.pack_camera(scene), (0, 0), ct,
+                                           cfg=cfg, n_cells=n, n_items=n, ior=scene.ior)
+    later = st["segments"] - n  # segments after a path's first
+    if depth == 1:
+        assert st["segments"] == n and st["prefix_terms"] == 0
+    elif depth == 2:
+        assert later > 0 and st["prefix_terms"] == later
+    else:
+        assert later < st["prefix_terms"] < scene.num_spheres * later
+
+
 @pytest.mark.parametrize("case", ["float64", "tent", "spheres"])
 def test_wrapper_rejects_what_the_kernel_does_not_do(case):
     """On a device other than the CPU (meta tensors stand in for the card)

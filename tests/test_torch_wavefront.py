@@ -183,7 +183,7 @@ def test_integrator_dispatch(monkeypatch):
                                                      pallas_persistent=persistent),
                                   _ids(cfg), 0, 1)
     assert calls == ["wavefront", "persistent", "per-step", "persistent", "persistent"]
-    with pytest.raises(ValueError, match="batch.*Queue 1 item 8"):
+    with pytest.raises(ValueError, match="batch.*Queue 1.*the geometry and camera backward"):
         render.render_cells_range(scene, cfg.replace(integrator="batch"), _ids(cfg), 0, 1)
     with pytest.raises(ValueError, match="unknown integrator"):
         render.resolve_integrator(scene, cfg.replace(integrator="xla"))
