@@ -95,11 +95,36 @@ script exits non-zero.
    control), the stream kernel's GB/s beside ``torch.mul`` on the same
    tensors.  Every rate finite and positive, no share above 100%.
 
+14. geometry_grad: the geometry and camera backward (the scan VJP, every
+   field of ``grad.OPTIMIZABLE``, the camera's eight leaves each) on the
+   card against the CPU's, float64, simple and box at 64x48, 2 spp,
+   max_depth 100: within 1e-9 of each field's largest magnitude, box's p0
+   and radius gradients exactly 0.  Float32 (simple): two backward passes
+   bitwise equal and finite, and the backward's recomputed radiance (the
+   batch route) against the forward kernel's per-item radiance, its
+   bitwise share reported and tier 1 required.  Each record carries the
+   seconds its CPU and card parts took.
+15. geometry_path: ``cli invert --scene simple --width 400 --height 400
+   --total-spp 4 --max-depth 100 --fields p0,radius,albedo,camera --steps
+   3`` on the card by default (4 total spp stands in for the inverse
+   config's 64): steps/s, the loss each step (finite), the forward kernel's
+   launches (5 a step and 5 for the target), no replay launch, peak device
+   memory; then one more step under ``torch.profiler``: the card's busy
+   share, and the seconds of the command and of the profiled step.
+16. replay_route: the step's albedo and emission gradients on the card
+   for scenes the replay kernel does not take (random_spheres, 100
+   spheres, float32: forward kernel and plain replay; box in float64 and
+   with tent jitter: plain wavefront loop and plain replay), no replay
+   kernel launch, against the CPU's: within 1e-9 (float64) or tier 1
+   (float32); the seconds of the CPU and card parts.  Then the three
+   phases' seconds in all (``geometry_phases``).
+
 Then a ``{"kernels": [...]}`` line (five kernels, each with its launches on
 its path, its time, its plain version's, its bound, the least time the card
 could take for the same work at its published peaks, which side binds, the
 probe-model time of the render kernels, and a library call's time where one
-PyTorch call computes the same; the whole-render and replay kernels also
+PyTorch call computes the same; the whole-render kernel also its launches on
+the geometry path; the whole-render and replay kernels also
 with their registers, the threads resident an SM and the launch's occupancy;
 the per-step kernel's bound is the
 render's, equal to the whole-render kernel's, with the floor of the
@@ -442,7 +467,7 @@ def main() -> int:
                 rk.replay_persistent(table, cam, (0, 0), ct, **kw)
                 rec["rejected"] = False
             except ValueError as e:  # the documented rejection is the expected outcome
-                rec["rejected"] = "ROADMAP" in str(e)
+                rec["rejected"] = f"1..{rk.MAX_REPLAY_SPHERES} spheres" in str(e)
             emit(rec)
             check(rec["rejected"], f"replay kernel did not reject {name} ({scene.num_spheres} "
                                    "spheres)")
@@ -933,6 +958,161 @@ def main() -> int:
           "max_abs_err": k6_err, "ms": res["ms"]["stream_scale"],
           "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
           "library_ms": library_ms}
+    # ---- 14. the geometry and camera backward on the card ----
+    from cpu_path_tracing_tpu_torch.ops import replay as replay_ops
+
+    def flat(g):
+        return dict(zip(*grad.flatten_params(g)))
+
+    def leaf_grads(scene, cfg, fields, **kw):
+        target = grad.render_target(scene, cfg) * 0.9
+        loss, g = grad.make_accum_loss_grad(scene, cfg, **kw)(grad.split_params(scene, fields),
+                                                               target)
+        return float(loss), {k: v.double().cpu() for k, v in flat(g).items()}
+
+    def rel_dev(got: dict, ref: dict) -> float:
+        """Worst |got - ref| over the largest |ref| of the leaf's field."""
+        worst = 0.0
+        for field in {n.split(".")[0] for n in ref}:
+            names = [n for n in ref if n.split(".")[0] == field]
+            scale = max(float(ref[n].abs().max()) for n in names) or 1.0
+            worst = max(worst, max(float((got[n] - ref[n]).abs().max()) for n in names) / scale)
+        return worst
+
+    t_geo = time.perf_counter()
+    cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=100)
+    for name in ("simple", "box"):
+        t0 = time.perf_counter()
+        _, ref = leaf_grads(tp.get_scene(name, W, H, dtype=torch.float64), cfg, grad.OPTIMIZABLE,
+                            sample_chunk=1)
+        t1 = time.perf_counter()
+        _, got = leaf_grads(tp.get_scene(name, W, H, dtype=torch.float64).to(dev), cfg,
+                            grad.OPTIMIZABLE, sample_chunk=1)
+        rec = {"phase": "geometry_grad", "scene": name, "dtype": "float64",
+               "config": "64x48, 2 spp, max_depth 100, all six fields, sample_chunk 1",
+               "cpu_seconds": t1 - t0, "card_seconds": time.perf_counter() - t1,
+               "leaves": len(got), "max_rel_dev": rel_dev(got, ref),
+               "max_abs": {n: float(v.abs().max()) for n, v in ref.items()}}
+        ok = rec["max_rel_dev"] <= 1e-9 and set(got) == set(ref)
+        if name == "box":
+            rec["p0_radius_zero"] = all(float(got[k].abs().max()) == 0.0 for k in ("p0", "radius"))
+            ok = ok and rec["p0_radius_zero"] and float(got["albedo"].abs().max()) > 0
+        rec["ok"] = ok
+        emit(rec)
+        check(ok, f"float64 geometry gradients on the card against the CPU's ({name})")
+
+    # Float32: two backward passes of one step bitwise equal, and the
+    # backward's recomputed primal against the forward kernel's per-item
+    # radiance.
+    t0 = time.perf_counter()
+    scene = tp.get_scene("simple", W, H).to(dev)
+    fields = ("p0", "radius", "albedo", "camera")
+    target = grad.render_target(scene, cfg) * 0.9
+    loss_grad = grad.make_accum_loss_grad(scene, cfg, sample_chunk=1)
+    g1, g2 = (flat(loss_grad(grad.split_params(scene, fields), target)[1]) for _ in range(2))
+    repeat = all(torch.equal(g1[n], g2[n]) for n in g1)
+    finite = all(bool(torch.isfinite(v).all()) for v in g1.values())
+    bwd_cfg = loss_grad.span.bwd_cfg
+    ids = torch.arange(cfg.num_cells, device=dev)
+    items, _ = mk.persistent_render(mk.pack_scene(scene), mk.pack_camera(scene), (0, 0), cfg=cfg,
+                                    n_cells=cfg.num_cells, n_items=SPP * cfg.num_cells,
+                                    ior=scene.ior)
+    recomputed = torch.cat([render.render_cells_range(scene, bwd_cfg, ids, s, 1).T
+                            for s in range(SPP)], dim=1)
+    prim = tier1(recomputed.cpu().numpy(), items.cpu().numpy())
+    rec = {"phase": "geometry_grad", "scene": "simple", "dtype": "float32", "fields": fields,
+           "bwd_cfg": {"loop": bwd_cfg.loop, "remat": bwd_cfg.remat,
+                       "compact_schedule": bwd_cfg.compact_schedule},
+           "bitwise_repeat": repeat, "finite": finite,
+           "recomputed_primal_vs_forward_kernel": prim,
+           "card_seconds": time.perf_counter() - t0}
+    rec["ok"] = repeat and finite and prim["ok"]
+    emit(rec)
+    check(rec["ok"], "float32 geometry gradients: repeat, finiteness, or the recomputed primal")
+
+    # ---- 15. the geometry path at full width: cli invert ----
+    geo_argv = ["invert", "--scene", "simple", "--width", "400", "--height", "400", "--total-spp",
+                "4", "--max-depth", "100", "--fields", "p0,radius,albedo,camera", "--steps", "3"]
+    mk.persistent_render.launches = rk.replay_persistent.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(geo_argv) == 0, "cli invert (geometry) failed")
+    invert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k2_geo, k3_geo = mk.persistent_render.launches, rk.replay_persistent.launches
+    lines = [json.loads(ln) for ln in buf.getvalue().strip().splitlines()]
+    losses = [r["loss"] for r in lines]
+    # One more step of the same configuration under the profiler.
+    cfg = tp.RenderConfig(width=400, height=400, spp=1, max_depth=100)
+    scene = tp.get_scene("simple", cfg.width, cfg.height).to(dev)
+    target = grad.render_target(scene, cfg, 1 << 17)
+    true = grad.split_params(scene, ("p0", "radius", "albedo", "camera"))
+    params = cli.perturbed_params(true, 0, 0.05)
+    step = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=1 << 17, sample_chunk=1)
+    params, _ = step(params, target)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step(params, target)
+        end.record()
+        torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end)
+    profiled_s = time.perf_counter() - t0
+    by_kernel = profiling.device_time_by_kernel(prof)
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    rec = {"phase": "geometry_path", "command": "python -m cpu_path_tracing_tpu_torch.cli "
+           + " ".join(geo_argv),
+           "cut": "4 total spp stands in for the inverse config's 64; 131,072-cell chunks",
+           "seconds": invert_s, "steps_per_s": lines[-1]["steps_per_s"], "losses": losses,
+           "mean_abs_err": lines[-1]["mean_abs_err"], "k2_launches": k2_geo,
+           "k2_launches_per_step": (k2_geo - 5) / 3, "k3_launches": k3_geo,
+           "peak_memory_gb": peak_gb, "profiled_step_ms": step_ms,
+           "profiled_device_ms": busy_ms, "busy_share": busy_ms / step_ms,
+           "profiled_launches": sum(n for _, n in by_kernel.values()),
+           "profiled_seconds": profiled_s}
+    rec["ok"] = (len(losses) == 3 and all(np.isfinite(losses)) and k3_geo == 0
+                 and k2_geo == 5 + 3 * 5)
+    emit(rec)
+    check(rec["ok"], "the geometry path: losses, or the kernels it launched")
+    k2["launches_geometry_path"] = k2_geo
+    del prof
+
+    # ---- 16. the plain replay on the card for scenes the replay kernel does not take ----
+    for name, dtype, jitter in (("random_spheres", torch.float32, "uniform"),
+                                ("box", torch.float64, "uniform"),
+                                ("box", torch.float32, "tent")):
+        cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=100, jitter=jitter)
+        t0 = time.perf_counter()
+        _, ref = leaf_grads(tp.get_scene(name, W, H, dtype=dtype), cfg, ("albedo", "emission"))
+        t1 = time.perf_counter()
+        scene = tp.get_scene(name, W, H, dtype=dtype).to(dev)
+        mk.persistent_render.launches = rk.replay_persistent.launches = 0
+        _, got = leaf_grads(scene, cfg, ("albedo", "emission"))
+        rec = {"phase": "replay_route", "scene": name, "spheres": scene.num_spheres,
+               "dtype": str(dtype), "jitter": jitter, "cpu_seconds": t1 - t0,
+               "card_seconds": time.perf_counter() - t1,
+               "route": replay_ops.replay_route(scene, cfg),
+               "forward_route": render.resolve_integrator(scene, cfg),
+               "k2_launches": mk.persistent_render.launches,
+               "k3_launches": rk.replay_persistent.launches, "max_rel_dev": rel_dev(got, ref)}
+        if dtype == torch.float64:
+            close = rec["max_rel_dev"] <= 1e-9
+        else:
+            t1 = tier1(torch.cat([got[k].reshape(-1) for k in sorted(got)]).numpy()[None],
+                       torch.cat([ref[k].reshape(-1) for k in sorted(ref)]).numpy()[None])
+            rec["tier1"], close = t1, t1["ok"]
+        kernel_fwd = rec["forward_route"] == "pallas"
+        rec["ok"] = (close and rec["route"] == "plain" and rec["k3_launches"] == 0
+                     and kernel_fwd == (rec["k2_launches"] >= 1) == (dtype == torch.float32
+                                                                     and jitter == "uniform"))
+        emit(rec)
+        check(rec["ok"], f"the plain replay on the card ({name}, {dtype}, {jitter})")
+    emit({"phase": "geometry_phases", "seconds": time.perf_counter() - t_geo})
+
     # Beside each render kernel's published-peak bound, its operations at
     # the rates the probe just measured.
     for entry, ops in ((k2, k2_ops), (k3, k3_ops), (k4, k4_ops)):

@@ -5,10 +5,13 @@ hand-written CUDA kernels for an NVIDIA H100.  Module names mirror the JAX
 package's.  The forward render is ported: ``render_image`` renders where
 the scene lives, with the CUDA kernel (``ops/kernels/megakernel.py``,
 ``csrc/``) on the card and its plain PyTorch version on the CPU.  So is
-inverse rendering of albedo, emission and background (``grad.py``), whose
-backward is the analytic replay (``ops/replay.py``; on the card the CUDA
-kernel of ``ops/kernels/replay.py``).  This package never imports JAX or
-the JAX package.
+inverse rendering of every optimizable field (``grad.py``): sphere
+centers and radii, albedo, emission, the camera and the background.  Its
+backward is the analytic replay for albedo, emission and background
+(``ops/replay.py``; on the card the CUDA kernel of
+``ops/kernels/replay.py`` where it takes the scene), else autograd through
+the batch route's bounce loop (``ops/integrator.py``).  This package never
+imports JAX or the JAX package.
 """
 
 from .config import RenderConfig
@@ -19,6 +22,7 @@ from .models.scene import (
     SPECULAR,
     Scene,
     get_scene,
+    params_from_arrays,
     register_scene,
     scene_from_arrays,
     scene_from_spheres,
@@ -41,6 +45,7 @@ __all__ = [
     "DIELECTRIC",
     "Scene",
     "get_scene",
+    "params_from_arrays",
     "register_scene",
     "scene_from_arrays",
     "scene_from_spheres",

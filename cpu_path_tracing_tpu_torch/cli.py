@@ -26,8 +26,13 @@ best of ``--repeats`` (CUDA-event time on the card), and one
 
 ``--total-spp N`` keeps the reference's meaning (N / subpixels^2 samples
 per subpixel cell, ``src/main.cpp:203-206``).  ``invert`` renders the
-scene as the target, perturbs the ``--fields`` with seeded normal noise and
-fits them back with Adam, printing one JSON line per reported step.
+scene as the target, perturbs the ``--fields`` (any of ``grad.OPTIMIZABLE``:
+p0, radius, albedo, emission, camera, background) with seeded normal noise
+and fits them back with Adam, printing one JSON line per reported step.
+Its backward is the replay for albedo, emission and background alone
+(``--no-replay-backward`` turns it off), else the scan VJP recomputed
+``--sample-chunk`` samples at a time, with live-ray compaction unless
+``--no-compact-backward`` (``grad.make_diff_render_span``).
 """
 
 from __future__ import annotations
@@ -83,6 +88,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--perturb", type=float, default=0.05)
     p.add_argument("--cell-chunk", type=int, default=1 << 17,
                    help="cells per gradient-accumulation chunk")
+    p.add_argument("--sample-chunk", type=int, default=1,
+                   help="samples per backward recompute (bounds the scan VJP's memory)")
+    p.add_argument("--no-compact-backward", action="store_true",
+                   help="disable live-ray compaction in the scan VJP")
+    p.add_argument("--no-replay-backward", action="store_true",
+                   help="use the scan VJP even when every field is a replay field")
     p = sub.add_parser("bench", help="time the per-step wavefront render")
     _add_common(p)
     p.add_argument("--repeats", type=int, default=3)
@@ -130,39 +141,73 @@ def cmd_render(args) -> int:
 
 
 def perturbed_params(true_params: dict, seed: int, perturb: float) -> dict:
-    """``true_params`` plus seeded normal noise, drawn key by key in sorted
-    key order from one NumPy stream (the order in which the JAX CLI's
-    ``jax.tree.map`` visits the dict), so the start does not depend on the
-    order of ``--fields``."""
+    """``true_params`` plus seeded normal noise, drawn leaf by leaf from one
+    NumPy stream in the JAX pytree's order (``grad.flatten_params``: keys
+    sorted, a camera's eight fields in ``CameraConfig`` order), the order in
+    which the JAX CLI's ``jax.tree.map`` visits the params.  So the start
+    equals the JAX CLI's for the same seed and does not depend on the order
+    of ``--fields``."""
+    from .grad import flatten_params, unflatten_params
+
     rng = np.random.default_rng(seed)
-    noise = {k: rng.normal(0, perturb, tuple(true_params[k].shape)) for k in sorted(true_params)}
-    return {k: v + torch.as_tensor(noise[k], dtype=v.dtype, device=v.device)
-            for k, v in true_params.items()}
+    names, leaves = flatten_params(true_params)
+    out = unflatten_params(names, [
+        v + torch.as_tensor(rng.normal(0, perturb, tuple(v.shape)), dtype=v.dtype, device=v.device)
+        for v in leaves])
+    return {k: out[k] for k in true_params}
+
+
+def mean_abs_errors(params: dict, true_params: dict) -> dict:
+    """Mean |params - true_params| per field; ``camera`` a dict of its eight
+    fields (the JAX CLI's ``jax.tree.map`` over the camera gives a
+    dataclass, which its JSON line cannot print)."""
+    from .grad import flatten_params
+
+    errs = {}
+    for name, a, b in zip(*flatten_params(params), flatten_params(true_params)[1]):
+        field, _, leaf = name.partition(".")
+        err = float((a - b).abs().mean())
+        if leaf:
+            errs.setdefault(field, {})[leaf] = err
+        else:
+            errs[field] = err
+    return errs
 
 
 def cmd_invert(args) -> int:
-    from .grad import check_replay_fields, make_accum_train_step, render_target, split_params
+    from .grad import make_accum_train_step, render_target, split_params
 
     cfg = _config(args)
     fields = tuple(args.fields.split(","))
-    check_replay_fields(fields)
     scene = get_scene(args.scene, cfg.width, cfg.height).to(args.device)
+    true_params = split_params(scene, fields)  # raises for a field outside OPTIMIZABLE
     t0 = time.perf_counter()
     target = render_target(scene, cfg, args.cell_chunk)
     print(f"target rendered in {time.perf_counter() - t0:.2f}s", file=sys.stderr)
 
-    true_params = split_params(scene, fields)
     params = perturbed_params(true_params, args.seed, args.perturb)
-    step_fn = make_accum_train_step(scene, cfg, args.lr, cell_chunk=args.cell_chunk)
+    step_fn = make_accum_train_step(scene, cfg, args.lr, cell_chunk=args.cell_chunk,
+                                    sample_chunk=args.sample_chunk,
+                                    compact=not args.no_compact_backward,
+                                    replay=not args.no_replay_backward)
     t0 = time.perf_counter()
     for step in range(args.steps):
         params, loss = step_fn(params, target)
         if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
             loss = float(loss)  # waits for the device
             sps = (step + 1) / (time.perf_counter() - t0)
-            errs = {k: float((params[k] - true_params[k]).abs().mean()) for k in params}
-            print(json.dumps({"step": step, "loss": loss, "steps_per_s": round(sps, 4),
-                              "mean_abs_err": errs}), flush=True)
+            rec = {"step": step, "loss": loss, "steps_per_s": round(sps, 4),
+                   "mean_abs_err": mean_abs_errors(params, true_params)}
+            # The compacted backward's monitor (JAX cli.py:343-355): report,
+            # never hide, live rays a capacity would truncate at these params.
+            if hasattr(step_fn, "drop_check"):
+                dropped = step_fn.drop_check(params)
+                if dropped:
+                    rec["backward_dropped_lanes"] = dropped
+                    print(f"WARNING: compacted backward truncated {dropped} live lanes at step "
+                          f"{step}; gradients carry a depth-truncation bias on those lanes: "
+                          "pass --no-compact-backward", file=sys.stderr)
+            print(json.dumps(rec), flush=True)
     return 0
 
 

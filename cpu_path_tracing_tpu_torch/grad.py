@@ -1,38 +1,56 @@
 """Differentiable rendering and inverse rendering.
 
-Counterpart of ``cpu_path_tracing_tpu/grad.py`` for the fields the analytic
-replay covers (albedo, emission, background).  The rendered cell sum is a
-``torch.autograd.Function``: its forward is ``render_cells_range`` (the
-forward kernel on the card), its backward ``ops/replay.
-replay_param_grads_auto`` (the replay kernel on the card), both on the
-scene's device.  The loss lives in linear radiance on subpixel cells,
-before the clamp of ``src/main.cpp:195-196``.
+Counterpart of ``cpu_path_tracing_tpu/grad.py`` for one device (the sharded
+steps wait for ``parallel/`` on torch.distributed, ROADMAP.md Queue 1).
+Every field of ``OPTIMIZABLE`` differentiates on the scene's device.
 
-Geometry and camera gradients (the JAX package's rematerialized scan VJP,
-with ``sample_chunk``, ``compact`` and its compaction schedule) are not
-ported yet: a field outside ``OPTIMIZABLE_REPLAY`` raises.
+The rendered cell sum is a ``torch.autograd.Function`` (``_RenderSpan``)
+with a decoupled forward and backward, as the JAX package's custom VJP:
+
+* forward: ``render_cells_range`` on the fast route (the forward kernel on
+  the card), without a tape;
+* backward, chosen from the fields and the config before anything runs
+  (JAX ``grad.py:259``): when ``replay`` is on and every field is in
+  ``OPTIMIZABLE_REPLAY``, the analytic replay
+  (``ops/replay.replay_param_grads_auto``: the replay kernel on the card
+  where it takes the scene, else the plain replay on the scene's device);
+  otherwise the scan VJP: each ``sample_chunk`` of the span recomputed under
+  autograd through the batch route with the backward config
+  (``_compact_bwd_cfg``: checkpointed bounces, live-ray compaction on a
+  pilot-tuned schedule) and contracted with the cotangent by
+  ``torch.autograd.grad`` (JAX ``_contracted_render_sum``).
+
+The loss lives in linear radiance on subpixel cells, before the clamp of
+``src/main.cpp:195-196``.
+
+Parameters are a dict of field tensors.  ``camera`` is a ``CameraConfig``
+whose eight fields are the leaves (the JAX pytree's), and its gradient is a
+``CameraConfig`` of the same eight fields.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 
 from .config import RenderConfig
+from .models.camera import FIELDS as CAMERA_FIELDS
+from .models.camera import CameraConfig
 from .models.scene import SPHERE_FIELDS, Scene
-from .ops.kernels.replay import check_replay_config
+from .ops.integrator import radiance
 from .ops.replay import replay_param_grads_auto
-from .render import _on_cuda, render_cells_range
+from .render import camera_rays, render_cells_range
 
 # Scene fields that may be optimized.
 OPTIMIZABLE = ("p0", "radius", "albedo", "emission", "camera", "background")
 # Fields whose gradients the analytic replay backward covers (multilinear in
-# the estimator, ops/replay.py).
+# the estimator, ops/replay.py); the rest need the scan VJP.
 OPTIMIZABLE_REPLAY = ("albedo", "emission", "background")
 
 
-def split_params(scene: Scene, fields=("p0", "radius", "albedo")) -> Dict[str, torch.Tensor]:
+def split_params(scene: Scene, fields=("p0", "radius", "albedo")) -> Dict[str, object]:
     """The optimizable fields of a scene, by name."""
     bad = set(fields) - set(OPTIMIZABLE)
     if bad:
@@ -40,7 +58,7 @@ def split_params(scene: Scene, fields=("p0", "radius", "albedo")) -> Dict[str, t
     return {f: getattr(scene, f) for f in fields}
 
 
-def merge_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
+def merge_params(scene: Scene, params: Dict[str, object]) -> Scene:
     """A new Scene with ``params`` in place of the scene's fields; the scene
     itself is not changed."""
     fields = {f: getattr(scene, f) for f in SPHERE_FIELDS + ("background",)}
@@ -48,90 +66,260 @@ def merge_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
     return Scene(**fields, camera=params.get("camera", scene.camera), ior=scene.ior)
 
 
-def check_replay_fields(fields) -> None:
-    """Raise ValueError for a field the replay backward does not cover."""
-    bad = sorted(set(fields) - set(OPTIMIZABLE_REPLAY))
-    if bad:
-        raise ValueError(f"gradients of {bad} are not ported yet: only {OPTIMIZABLE_REPLAY} "
-                         "(ROADMAP.md Queue 1: the geometry and camera backward)")
+def flatten_params(params: Dict[str, object]):
+    """(names, tensors) of the leaves of ``params`` in the JAX pytree's
+    order: keys sorted, a camera's eight fields in ``CameraConfig`` order,
+    named ``camera.<field>``."""
+    names, leaves = [], []
+    for k in sorted(params):
+        if k == "camera":
+            names += [f"camera.{f}" for f in CAMERA_FIELDS]
+            leaves += [getattr(params[k], f) for f in CAMERA_FIELDS]
+        else:
+            names.append(k)
+            leaves.append(params[k])
+    return tuple(names), tuple(leaves)
+
+
+def unflatten_params(names, leaves) -> Dict[str, object]:
+    """The inverse of ``flatten_params``."""
+    out, cam = {}, {}
+    for n, v in zip(names, leaves):
+        if n.startswith("camera."):
+            cam[n[len("camera."):]] = v
+        else:
+            out[n] = v
+    if cam:
+        out["camera"] = CameraConfig(**cam)
+    return out
+
+
+def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
+    return cfg.replace(loop="scan", integrator="batch")
+
+
+def cell_loss(params, scene: Scene, cfg: RenderConfig, cell_ids, target_cells,
+              sample_start: int = 0, num_samples: Optional[int] = None):
+    """Mean squared error between the rendered cell radiance and
+    ``target_cells`` [B,3], through the differentiable scan loop."""
+    cfg = _diff_cfg(cfg)
+    ns = cfg.spp if num_samples is None else num_samples
+    cells = render_cells_range(merge_params(scene, params), cfg, cell_ids, sample_start, ns) / ns
+    return ((cells - target_cells) ** 2).mean()
+
+
+def train_step(params, optimizer, scene: Scene, cfg: RenderConfig, cell_ids, target_cells):
+    """One inverse-rendering step on ``cell_loss``: ``optimizer`` is a
+    ``torch.optim`` optimizer over the leaves of ``params``
+    (``flatten_params``, tensors that require grad), which it updates in
+    place.  Returns (params, the loss before the step)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = cell_loss(params, scene, cfg, cell_ids, target_cells)
+    loss.backward()
+    optimizer.step()
+    return params, loss.detach()
+
+
+def tune_backward_schedule(scene: Scene, cfg: RenderConfig, *, group: int = 4,
+                           min_frac: float = 1.0 / 64, probe_cells: int = 1 << 14):
+    """Stage boundaries for the live-ray compaction of the scan VJP
+    (``ops/integrator.radiance_compact``) from a pilot survival curve (JAX
+    ``grad.py:76-124``).
+
+    One sample of the scan loop over a strided ~``probe_cells`` cell subset
+    gives the live count before each bounce.  A new stage opens at a
+    multiple of ``group`` bounces where the live fraction (floored at
+    ``min_frac``) has fallen to a third of the current stage's or below:
+    each boundary costs a host sync and a gather of the ray state, so only a
+    3x drop pays for one.  Returns a tuple of stage lengths, or None when
+    the curve does not fall that far (one stage is the plain loop)."""
+    n = cfg.num_cells
+    ids = torch.arange(0, n, max(1, n // probe_cells), device=scene.device)
+    with torch.no_grad():
+        keys, o, d = camera_rays(scene, cfg, ids, 0, scene.dtype)
+        _, st = radiance(scene, o, d, keys, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
+                         epsilon=cfg.epsilon, inf=cfg.inf, loop="scan", with_stats=True)
+    curve = st["live_per_depth"].double().cpu() / ids.shape[0]
+    stages: list[list] = []  # [n_steps, live fraction at the stage's start]
+    for d0 in range(0, cfg.max_depth, group):
+        g = min(group, cfg.max_depth - d0)
+        frac = min(1.0, max(float(curve[d0]), min_frac))
+        if stages and frac > stages[-1][1] / 3.0:
+            stages[-1][0] += g
+        else:
+            stages.append([g, frac])
+    if len(stages) <= 1:
+        return None
+    return tuple(int(s) for s, _ in stages)
+
+
+def backward_drop_count(scene: Scene, cfg: RenderConfig, num_cells: int, params=None,
+                        sample_idx: int = 0) -> int:
+    """Live rays the compacted backward truncates: 0 by construction.  The
+    JAX package gathers live lanes into buffers of a pilot-tuned capacity
+    and counts the ones that do not fit (JAX ``grad.py:127-150``);
+    ``radiance_compact`` gathers exactly the live rays, by index, so it
+    drops none.  Kept with the JAX signature for ``step.drop_check`` and
+    ``cli invert``'s record."""
+    return 0
+
+
+def _compact_bwd_cfg(scene: Scene, cfg: RenderConfig, compact: bool) -> RenderConfig:
+    """The scan VJP's config: the batch route with the 'while' loop and
+    checkpointed bounces, plus a pilot-tuned compaction schedule when
+    ``compact`` and the scene's survival curve falls (a caller's explicit
+    schedule wins; shallow renders are not worth the pilot).  Built once a
+    span, on its first scan VJP (``_Span.bwd_cfg``).  'while' stops at the
+    first bounce with no ray alive, for a host sync a bounce; the JAX
+    package's 'scan' runs every bounce, as its autodiff needs.  Both give the
+    same gradients.  On the card the recompute is bound by its launches:
+    early exit saves none on a full chunk (some path lives to max_depth) and
+    a fifth of a simple 400x400 step's, whose last chunk ends early (PERF.md,
+    Findings PR 7)."""
+    bwd = cfg.replace(loop="while", integrator="batch", remat=True)
+    if compact and bwd.compact_schedule is None and cfg.max_depth >= 16:
+        sched = tune_backward_schedule(scene, bwd)
+        if sched is not None:
+            bwd = bwd.replace(compact_schedule=sched)
+    return bwd
+
+
+class _Span:
+    """What a span's forward and backward run with.  ``bwd_cfg``, the scan
+    VJP's config, is built on first use: its pilot runs only where a scan
+    VJP does, never for a step whose backward is the replay."""
+
+    def __init__(self, scene: Scene, cfg: RenderConfig, spp: int, chunk: int, compact: bool,
+                 replay: bool):
+        self.scene, self.cfg, self.spp, self.chunk = scene, cfg, spp, chunk
+        self.compact, self.replay = compact, replay
+        self.fwd_cfg = cfg.replace(loop="while")
+
+    @functools.cached_property
+    def bwd_cfg(self) -> RenderConfig:
+        return _compact_bwd_cfg(self.scene, self.cfg, self.compact)
+
+    def uses_replay(self, fields) -> bool:
+        """Whether the backward for ``fields`` is the replay (JAX
+        ``grad.py:259``); else the scan VJP."""
+        return self.replay and set(fields) <= set(OPTIMIZABLE_REPLAY)
+
+
+def _scan_vjp(span: _Span, cell_ids, sample_start: int, names, values, ct):
+    """Gradients of ``sum(ct * render_sum)`` with respect to ``values``:
+    each sample chunk recomputed under autograd on the batch route."""
+    total = None
+    with torch.enable_grad():
+        leaves = [v.detach().requires_grad_(True) for v in values]
+        sc = merge_params(span.scene, unflatten_params(names, leaves))
+        for s0 in range(sample_start, sample_start + span.spp, span.chunk):
+            out = render_cells_range(sc, span.bwd_cfg, cell_ids, s0, span.chunk)
+            g = torch.autograd.grad(out, leaves, grad_outputs=ct, allow_unused=True,
+                                    materialize_grads=True)
+            total = g if total is None else tuple(a + b for a, b in zip(total, g))
+    return total
 
 
 class _RenderSpan(torch.autograd.Function):
-    """Per-cell radiance sum over a sample span; backward by the replay."""
+    """Per-cell radiance sum over a sample span: forward on the fast route,
+    backward by the replay or the scan VJP."""
 
     @staticmethod
-    def forward(ctx, scene, cfg, cell_ids, sample_start, num_samples, names, *values):
-        sc = merge_params(scene, dict(zip(names, values)))
-        ctx.replay = (sc, cfg, cell_ids, sample_start, num_samples, names)
-        return render_cells_range(sc, cfg, cell_ids, sample_start, num_samples)
+    def forward(ctx, span, use_replay, cell_ids, sample_start, names, *values):
+        ctx.args = (span, use_replay, cell_ids, sample_start, names)
+        ctx.save_for_backward(*values)
+        sc = merge_params(span.scene, unflatten_params(names, values))
+        return render_cells_range(sc, span.fwd_cfg, cell_ids, sample_start, span.spp)
 
     @staticmethod
     def backward(ctx, ct):
-        sc, cfg, cell_ids, sample_start, num_samples, names = ctx.replay
-        g = replay_param_grads_auto(sc, cfg, cell_ids, sample_start, num_samples, ct)
-        return (None,) * 6 + tuple(g[k] for k in names)
+        span, use_replay, cell_ids, sample_start, names = ctx.args
+        values = ctx.saved_tensors
+        if use_replay:
+            sc = merge_params(span.scene, unflatten_params(names, values))
+            g = replay_param_grads_auto(sc, span.fwd_cfg, cell_ids, sample_start, span.spp, ct)
+            grads = tuple(g[n].to(v.dtype) for n, v in zip(names, values))
+        else:
+            grads = _scan_vjp(span, cell_ids, sample_start, names, values, ct)
+        return (None,) * 5 + grads
 
 
-def make_diff_render_span(scene: Scene, cfg: RenderConfig, spp_span: int):
+def make_diff_render_span(scene: Scene, cfg: RenderConfig, spp_span: int,
+                          sample_chunk: Optional[int] = None, compact: bool = True,
+                          replay: bool = True):
     """Differentiable per-cell radiance SUM over ``spp_span`` samples from a
     ``sample_start``: ``render_sum(params, cell_ids, sample_start) -> [B,3]``,
-    differentiable with respect to ``params`` (a dict of replay fields).
-
-    On a CUDA scene, what the kernels do not do (float64, tent jitter, more
-    than MAX_REPLAY_SPHERES spheres) raises here, before anything runs."""
-    if _on_cuda(scene):
-        check_replay_config(cfg, scene.dtype, scene.num_spheres)
+    differentiable with respect to ``params`` (any fields of
+    ``OPTIMIZABLE``).  The forward takes the config's route (a contiguous
+    cell span); the backward recomputes ``sample_chunk`` samples at a time
+    (the memory knob: one chunk's tape at a time), or runs the replay
+    (module docstring).  ``render_sum.span.bwd_cfg`` is the scan VJP's config."""
+    chunk = sample_chunk or spp_span
+    if spp_span % chunk:
+        raise ValueError(f"sample_chunk={chunk} must divide span={spp_span}")
+    span = _Span(scene, cfg, spp_span, chunk, compact, replay)
 
     def render_sum(params, cell_ids, sample_start: int = 0):
-        check_replay_fields(params)
-        names = tuple(params)
-        return _RenderSpan.apply(scene, cfg, cell_ids, int(sample_start), spp_span, names,
-                                 *(params[k] for k in names))
+        split_params(scene, tuple(params))  # raises for a field outside OPTIMIZABLE
+        names, values = flatten_params(params)
+        return _RenderSpan.apply(span, span.uses_replay(params), cell_ids, int(sample_start),
+                                 names, *values)
 
+    render_sum.span = span
     return render_sum
 
 
-def make_diff_render(scene: Scene, cfg: RenderConfig):
+def make_diff_render(scene: Scene, cfg: RenderConfig, sample_chunk: Optional[int] = None,
+                     compact: bool = True, replay: bool = True):
     """Differentiable per-cell MEAN radiance over ``cfg.spp`` samples:
-    ``render_mean(params, cell_ids) -> [B,3]``."""
-    render_sum = make_diff_render_span(scene, cfg, cfg.spp)
+    ``render_mean(params, cell_ids) -> [B,3]`` (``make_diff_render_span``)."""
+    render_sum = make_diff_render_span(scene, cfg, cfg.spp, sample_chunk, compact=compact,
+                                       replay=replay)
 
     def render_mean(params, cell_ids):
         return render_sum(params, cell_ids, 0) / cfg.spp
 
+    render_mean.span = render_sum.span
     return render_mean
 
 
-def make_accum_loss_grad(scene: Scene, cfg: RenderConfig, *, cell_chunk: Optional[int] = None):
+def make_accum_loss_grad(scene: Scene, cfg: RenderConfig, *, cell_chunk: Optional[int] = None,
+                         sample_chunk: Optional[int] = None, compact: bool = True,
+                         replay: bool = True):
     """The full-image loss and its gradient, accumulated over chunks.
 
     Returns ``loss_grad(params, targets) -> (loss, grads)``: ``loss`` is the
     full-image MSE against the [num_cells, 3] mean-radiance ``targets`` (a
-    0-d tensor), ``grads`` its gradient with respect to each of ``params``,
-    both summed over contiguous ``cell_chunk``-cell spans and divided by
-    ``3 * num_cells`` once at the end (the chunk loop of the JAX package's
-    ``make_accum_train_step``)."""
+    0-d tensor), ``grads`` its gradient with respect to each of ``params``
+    (``camera``: a ``CameraConfig``), both summed over contiguous
+    ``cell_chunk``-cell spans and divided by ``3 * num_cells`` once at the
+    end (the chunk loop of the JAX package's ``make_accum_train_step``).
+    ``loss_grad.span.bwd_cfg`` is the scan VJP's config."""
     n = cfg.num_cells
     cc = min(cell_chunk or n, n)
-    render_mean = make_diff_render(scene, cfg)
+    render_mean = make_diff_render(scene, cfg, sample_chunk, compact=compact, replay=replay)
 
     def loss_grad(params, targets):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        names, values = flatten_params(params)
+        leaves = [v.detach().requires_grad_(True) for v in values]
+        p = unflatten_params(names, leaves)
         sq_sum = grads = None
         for start in range(0, n, cc):
             ids = torch.arange(start, min(start + cc, n), dtype=torch.int64, device=scene.device)
-            sq = ((render_mean(leaves, ids) - targets[start:start + ids.shape[0]]) ** 2).sum()
-            g = torch.autograd.grad(sq, tuple(leaves.values()))
+            sq = ((render_mean(p, ids) - targets[start:start + ids.shape[0]]) ** 2).sum()
+            g = torch.autograd.grad(sq, leaves)
             sq_sum = sq.detach() if sq_sum is None else sq_sum + sq.detach()
             grads = g if grads is None else tuple(a + b for a, b in zip(grads, g))
         denom = 3 * n
-        return sq_sum / denom, {k: v / denom for k, v in zip(leaves, grads)}
+        return sq_sum / denom, unflatten_params(names, [g / denom for g in grads])
 
+    loss_grad.span = render_mean.span
     return loss_grad
 
 
 def make_accum_train_step(scene: Scene, cfg: RenderConfig, lr: float, *,
-                          cell_chunk: Optional[int] = None):
+                          cell_chunk: Optional[int] = None, sample_chunk: Optional[int] = None,
+                          compact: bool = True, replay: bool = True):
     """Inverse rendering at full image size: one Adam step per call.
 
     Returns ``step(params, targets) -> (params, loss)``.  ``targets`` is the
@@ -141,30 +329,46 @@ def make_accum_train_step(scene: Scene, cfg: RenderConfig, lr: float, *,
     tensors.
 
     The step keeps ``torch.optim.Adam`` (optax.adam's betas and eps) and its
-    moments across calls: its first call takes the params to optimize, later
-    calls continue from the params they are given."""
-    loss_grad = make_accum_loss_grad(scene, cfg, cell_chunk=cell_chunk)
+    moments across calls, over every leaf (``flatten_params``: a camera's
+    eight fields each): its first call takes the params to optimize, later
+    calls continue from the params they are given.  With ``compact``,
+    ``step.drop_check(params)`` is the JAX monitor (``backward_drop_count``)
+    of the last step's backward; ``step.span.bwd_cfg`` the scan VJP's config."""
+    n = cfg.num_cells
+    cc = min(cell_chunk or n, n)
+    loss_grad = make_accum_loss_grad(scene, cfg, cell_chunk=cell_chunk,
+                                     sample_chunk=sample_chunk, compact=compact, replay=replay)
     state = {}
 
     def step(params, targets):
+        names, values = flatten_params(params)
         if not state:
-            state["params"] = {k: v.detach().clone().requires_grad_(True)
-                               for k, v in params.items()}
-            state["opt"] = torch.optim.Adam(state["params"].values(), lr=lr,
-                                            betas=(0.9, 0.999), eps=1e-8)
-        leaves, opt = state["params"], state["opt"]
-        if set(params) != set(leaves):
-            raise ValueError(f"step was built for {sorted(leaves)}, got {sorted(params)}")
+            state["names"] = names
+            state["leaves"] = [v.detach().clone().requires_grad_(True) for v in values]
+            state["opt"] = torch.optim.Adam(state["leaves"], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        leaves, opt = state["leaves"], state["opt"]
+        if names != state["names"]:
+            raise ValueError(f"step was built for {state['names']}, got {names}")
         with torch.no_grad():
-            for k, v in params.items():
-                if v is not leaves[k]:
-                    leaves[k].copy_(v)
-        loss, grads = loss_grad(leaves, targets)
-        for k, v in leaves.items():
-            v.grad = grads[k]
+            for leaf, v in zip(leaves, values):
+                if v is not leaf:
+                    leaf.copy_(v)
+        loss, grads = loss_grad(unflatten_params(names, leaves), targets)
+        for leaf, g in zip(leaves, flatten_params(grads)[1]):
+            leaf.grad = g
         opt.step()
-        return {k: v.detach().clone() for k, v in leaves.items()}, loss
+        return unflatten_params(names, [v.detach().clone() for v in leaves]), loss
 
+    step.span = loss_grad.span
+    if compact:
+        def drop_check(params=None):
+            # Nothing was compacted before a first step, nor by a replay step.
+            span = step.span
+            if not state or span.uses_replay({n.partition(".")[0] for n in state["names"]}):
+                return 0
+            return backward_drop_count(scene, span.bwd_cfg, cc, params=params)
+
+        step.drop_check = drop_check
     return step
 
 

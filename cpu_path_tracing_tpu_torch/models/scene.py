@@ -108,21 +108,35 @@ def scene_from_spheres(spheres, camera: CameraConfig, anchor_toward=None,
                  camera=camera, background=f(background), ior=ior)
 
 
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True))
+
+
 def scene_from_arrays(arrays: Dict[str, np.ndarray], ior: float) -> Scene:
     """Build a Scene from the JAX ``Scene``'s fields given as NumPy arrays:
-    the six sphere fields, the eight ``CameraConfig`` fields and
-    ``background``.  The arrays are copied exactly, in their own dtype;
-    nothing is recomputed."""
-    missing = set(SPHERE_FIELDS + CAMERA_FIELDS + ("background",)) - set(arrays)
+    the six sphere fields, ``background`` and the eight ``CameraConfig``
+    fields, either at the top level or as a dict under ``camera`` (the
+    params-dict form, ``params_from_arrays``).  The arrays are copied
+    exactly, in their own dtype; nothing is recomputed."""
+    flat = dict(arrays)
+    flat.update(flat.pop("camera", {}))
+    missing = set(SPHERE_FIELDS + CAMERA_FIELDS + ("background",)) - set(flat)
     if missing:
         raise KeyError(f"scene_from_arrays: missing fields {sorted(missing)}")
+    camera = CameraConfig(**{n: _tensor(flat[n]) for n in CAMERA_FIELDS})
+    return Scene(**{n: _tensor(flat[n]) for n in SPHERE_FIELDS}, camera=camera,
+                 background=_tensor(flat["background"]), ior=ior)
 
-    def t(name):
-        return torch.from_numpy(np.array(arrays[name], copy=True))
 
-    camera = CameraConfig(**{n: t(n) for n in CAMERA_FIELDS})
-    return Scene(**{n: t(n) for n in SPHERE_FIELDS}, camera=camera,
-                 background=t("background"), ior=ior)
+def params_from_arrays(arrays: Dict[str, object]) -> Dict[str, object]:
+    """The port's params dict (``grad.split_params``'s form) from the JAX
+    package's params as NumPy: each field an array, ``camera`` a dict of the
+    eight ``CameraConfig`` fields (which becomes a ``CameraConfig``).
+    Copied exactly, in their own dtype."""
+    out = {k: _tensor(v) for k, v in arrays.items() if k != "camera"}
+    if "camera" in arrays:
+        out["camera"] = CameraConfig(**{n: _tensor(arrays["camera"][n]) for n in CAMERA_FIELDS})
+    return out
 
 
 # Scene registry — replaces the reference's compile-time #include swap

@@ -12,7 +12,13 @@ semantics match the reference bounce for bounce (``src/main.cpp:104-158``):
 * depth exhaustion returns the accumulated emission (``src/main.cpp:157``).
 
 This is the plain version of the CUDA kernel's bounce (``csrc/step_math.cuh``
-holds the same expressions); the render runs it on the CPU.
+holds the same expressions); the render runs it on the CPU.  It is also the
+differentiable estimator: under torch autograd either loop of ``radiance``
+gives the detached-decision gradients of the JAX package's ``scan`` loop
+(hit ids, roulette and the dielectric branch are piecewise constant, so
+gradients flow through t, the normals, the Fresnel weights and the
+throughput; visibility edges are not sampled, so closed scenes such as
+``box`` have exactly zero geometry gradients).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import rng as rng_ops
 from .intersect import hit_record, intersect_scene, rsqrt_safe, sphere_props
@@ -110,28 +117,100 @@ def bounce_step(scene, state: RayState, uniforms, depth, *, rr_depth, epsilon, i
     return new_state
 
 
+def _bounces(scene, st: RayState, keys, depths, *, sync: bool, remat: bool, kw):
+    """Run ``bounce_step`` at each depth of ``depths``.  ``sync``: read the
+    live count on the host before each bounce and stop at the first bounce
+    with no ray alive (the live counts are ints); else run every bounce
+    (the counts are 0-d tensors).  ``remat`` under autograd: each bounce in
+    ``torch.utils.checkpoint``, so the backward keeps only the ray state and
+    the bounce's uniforms.  The uniforms are drawn outside the checkpoint:
+    they depend on no parameter, and the recompute then skips the cipher.
+    Returns (state, live counts, one per bounce run)."""
+    live = []
+    for depth in depths:
+        n = st.alive.sum()
+        if sync:
+            n = int(n)
+            if n == 0:
+                break
+        live.append(n)
+        u = rng_ops.bounce_uniforms(keys[0], keys[1], depth).to(st.origin.dtype)
+        if remat and torch.is_grad_enabled():
+            st = RayState(*checkpoint(
+                lambda *a, depth=depth: tuple(bounce_step(scene, RayState(*a[:6]), a[6], depth,
+                                                          **kw)),
+                *st, u, use_reentrant=False))
+        else:
+            st = bounce_step(scene, st, u, depth, **kw)
+    return st, live
+
+
 def radiance(scene, origins, directions, keys, *, max_depth=100, rr_depth=4,
-             epsilon=1e-4, inf=1e20, loop="while", with_stats=False):
+             epsilon=1e-4, inf=1e20, loop="while", with_stats=False, remat=False):
     """Radiance [B,3] of a ray batch.  ``keys``: ([B],[B]) per-sample item
-    keys.  With ``with_stats`` also ``{'segments': live rays summed over
-    bounces (int), 'depth': bounce steps run (int)}``."""
-    if loop != "while":
-        raise ValueError(f"loop={loop!r} is not ported yet; only 'while' "
-                         "(ROADMAP.md Queue 1, the geometry and camera backward, ports "
-                         "the scan loop)")
-    st = init_state(origins, directions)
+    keys.
+
+    ``loop``: 'while' stops at the first bounce with no ray alive (one host
+    sync a bounce); 'scan' runs all ``max_depth`` bounces without a sync.
+    Dead rays are frozen by ``torch.where``, so both give the same radiance
+    and, under autograd, the same gradients.  ``remat``: wrap each bounce
+    in ``torch.utils.checkpoint`` when autograd records (JAX:
+    ``jax.checkpoint`` of the scan step).
+
+    With ``with_stats`` also ``{'segments': live rays summed over bounces,
+    'depth': bounces run}``, ints for 'while'; for 'scan' 0-d tensors and
+    ``'live_per_depth'``, the live count before each bounce [max_depth]."""
+    if loop not in ("while", "scan"):
+        raise ValueError(f"unknown loop {loop!r}: 'while' or 'scan'")
     kw = dict(rr_depth=rr_depth, epsilon=epsilon, inf=inf)
-    segments = 0
-    depth = 0
-    while depth < max_depth:
-        live = int(st.alive.sum())
-        if live == 0:
-            break
-        segments += live
-        u = rng_ops.bounce_uniforms(keys[0], keys[1], depth).to(origins.dtype)
-        st = bounce_step(scene, st, u, depth, **kw)
-        depth += 1
+    st, live = _bounces(scene, init_state(origins, directions), keys, range(max_depth),
+                        sync=loop == "while", remat=remat, kw=kw)
     out = torch.where(st.alive[:, None], st.emission, st.result)
-    if with_stats:
-        return out, {"segments": segments, "depth": depth}
-    return out
+    if not with_stats:
+        return out
+    if loop == "while":
+        return out, {"segments": sum(live), "depth": len(live)}
+    per_depth = (torch.stack(live) if live
+                 else torch.zeros(0, dtype=torch.int64, device=origins.device))
+    return out, {"segments": per_depth.sum(), "depth": torch.tensor(max_depth),
+                 "live_per_depth": per_depth}
+
+
+def radiance_compact(scene, origins, directions, keys, *, max_depth=100, rr_depth=4,
+                     epsilon=1e-4, inf=1e20, schedule, loop="scan", remat=True):
+    """``radiance`` with live-ray compaction at stage boundaries (JAX
+    ``ops/integrator.radiance_compact``).
+
+    ``schedule``: stage lengths in bounces, summing to ``max_depth``
+    (``grad.tune_backward_schedule``).  At each boundary the finished rays
+    retire their radiance into the output and the live rays are gathered,
+    by index, into the next stage's batch; the run ends at a boundary with
+    no ray alive.  The compaction is exact: unlike the JAX package's
+    capacity-bounded buffers, no live ray is ever dropped, so there is no
+    ``dropped`` count.  The per-ray math is ``radiance``'s, so the radiance
+    is the plain loop's; a stage runs its bounces as ``loop`` says.  The
+    gathers' backward adds each ray's gradient once, so it repeats bitwise on
+    the card.  Returns [B,3]."""
+    if sum(schedule) != max_depth:
+        raise ValueError(f"schedule {schedule} does not cover max_depth={max_depth}")
+    kw = dict(rr_depth=rr_depth, epsilon=epsilon, inf=inf)
+    st = init_state(origins, directions)
+    orig = torch.arange(origins.shape[0], device=origins.device)
+    out = torch.zeros_like(origins)
+    d0 = 0
+    for i, n_steps in enumerate(schedule):
+        if i:
+            # Retire the rays that finished (a live ray's result is 0) and
+            # keep the live ones.
+            out = out.index_add(0, orig, torch.where(st.alive[:, None], 0.0, st.result))
+            live = torch.nonzero(st.alive).squeeze(1)
+            if not live.numel():
+                return out
+            st = RayState(*(x[live] for x in st[:5]), result=torch.zeros_like(st.result[live]))
+            keys, orig = (keys[0][live], keys[1][live]), orig[live]
+        st, live_counts = _bounces(scene, st, keys, range(d0, d0 + n_steps),
+                                   sync=loop == "while", remat=remat, kw=kw)
+        if len(live_counts) < n_steps:  # 'while' found no ray alive
+            break
+        d0 += n_steps
+    return out.index_add(0, orig, torch.where(st.alive[:, None], st.emission, st.result))

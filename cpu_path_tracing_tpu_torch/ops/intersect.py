@@ -52,7 +52,11 @@ def intersect_scene(scene, origins, directions, epsilon=1e-4, inf=1e20):
 
     disc = b * b - a * c
     has_root = disc >= 0.0
-    sqrtd = torch.sqrt(torch.where(has_root, disc, torch.ones_like(disc)))
+    # A tangent ray (disc == 0) takes sqrt's value 0 without its infinite
+    # derivative, which would turn a zero cotangent into NaN (0 * inf).
+    tangent = disc == 0.0
+    sqrtd = torch.where(tangent, torch.zeros_like(disc),
+                        torch.sqrt(torch.where(has_root & ~tangent, disc, torch.ones_like(disc))))
     sign_b = torch.where(b >= 0.0, 1.0, -1.0).to(b.dtype)
     qform = -(b + sign_b * sqrtd)
     nonzero = qform != 0.0
@@ -67,7 +71,10 @@ def intersect_scene(scene, origins, directions, epsilon=1e-4, inf=1e20):
     root = torch.where(t_near >= epsilon, t_near, torch.where(t_far >= epsilon, t_far, inf_t))
     root = torch.where(has_root, root, inf_t)
 
-    t, hit_id = torch.min(root, dim=-1)  # first index of the minimum
+    # amin splits a tie's gradient evenly, as jnp.min does (torch.min(dim)
+    # would send all of it to the returned index); argmin is the first index.
+    t = root.amin(dim=-1)
+    hit_id = root.argmin(dim=-1)
     return t, hit_id, t < inf
 
 
@@ -80,13 +87,37 @@ class SphereProps(NamedTuple):
     mat_mask: torch.Tensor  # [B,3] one-hot (diffuse, specular, dielectric)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` with a backward that repeats bitwise on the card.
+
+    The backward of an index is an atomic scatter-add on CUDA, whose float
+    sums depend on the order the atomics land in.  Here a row's gradient is
+    the JAX package's one-hot product (``onehot.T @ g``) written as a
+    broadcast multiply and a sum over the batch: no atomics, and no matmul
+    that TF32 could round."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        onehot = (idx[:, None] == torch.arange(ctx.rows, device=idx.device)).to(g.dtype)
+        return (onehot[:, :, None] * g[:, None, :]).sum(dim=0), None
+
+
 def sphere_props(scene, hit_id) -> SphereProps:
-    """Exact index gather of the hit sphere's data (the JAX package gathers
-    with a one-hot matmul at HIGHEST precision, which gives the same values)."""
+    """The hit sphere's data for each ray: an exact index gather forward
+    (the values of the JAX package's one-hot matmul at HIGHEST precision),
+    and a deterministic backward (``_GatherRows``)."""
     center = scene.p0 - scene.radius[:, None] * scene.anchor_dir
+    rows = _GatherRows.apply(torch.cat([center, scene.emission, scene.albedo], dim=1), hit_id)
     mats = torch.nn.functional.one_hot(scene.material.long(), 3).to(scene.p0.dtype)
-    return SphereProps(center=center[hit_id], emission=scene.emission[hit_id],
-                       albedo=scene.albedo[hit_id], mat_mask=mats[hit_id])
+    return SphereProps(center=rows[:, 0:3], emission=rows[:, 3:6], albedo=rows[:, 6:9],
+                       mat_mask=mats[hit_id])
 
 
 def hit_record(origins, directions, t, props: SphereProps):

@@ -141,8 +141,8 @@ def check_kernel_config(cfg: RenderConfig, dtype: torch.dtype) -> None:
     ``integrator='wavefront'`` (what 'auto' picks for such a scene) renders
     the rest with the plain wavefront loop.  Nothing falls back after a
     kernel is asked for."""
-    todo = ("integrator='wavefront' renders it forward; its replay backward on CUDA "
-            "is ROADMAP.md Queue 1: the plain replay on the card")
+    todo = ("integrator='wavefront' renders it forward, and "
+            "ops/replay.replay_param_grads_auto takes its replay to the plain version")
     if dtype != torch.float32:
         raise ValueError(f"the CUDA kernels are float32, got {dtype}: {todo}")
     if cfg.jitter != "uniform":

@@ -58,17 +58,24 @@ from .megakernel import (
 MAX_REPLAY_SPHERES = 40
 
 
+def replay_kernel_takes(cfg: RenderConfig, dtype: torch.dtype, n_spheres: int) -> bool:
+    """Whether the CUDA replay kernel takes this replay: float32, uniform
+    jitter and 1..MAX_REPLAY_SPHERES spheres (``check_replay_config``)."""
+    return (dtype == torch.float32 and cfg.jitter == "uniform"
+            and 1 <= n_spheres <= MAX_REPLAY_SPHERES)
+
+
 def check_replay_config(cfg: RenderConfig, dtype: torch.dtype, n_spheres: int) -> None:
     """Raise ValueError for a replay the CUDA kernel does not do: the forward
     kernel's rule (float32, uniform jitter) and at most MAX_REPLAY_SPHERES
-    spheres.  A CUDA scene outside it raises rather than running the plain
-    version on the card."""
+    spheres.  ``ops/replay.replay_param_grads_auto`` sends such a scene to
+    the plain replay on the card before anything launches; the kernel's
+    wrapper itself raises rather than run the plain version."""
     check_kernel_config(cfg, dtype)
     if not 1 <= n_spheres <= MAX_REPLAY_SPHERES:
         raise ValueError(
             f"the CUDA replay kernel holds 1..{MAX_REPLAY_SPHERES} spheres, got {n_spheres}; "
-            "a larger scene's backward on CUDA is not ported yet (ROADMAP.md Queue 1: "
-            "the plain replay on the card for N > 40)")
+            "ops/replay.replay_param_grads_auto takes a larger scene to the plain replay")
 
 
 def _check_ct(ct, table, n_cells: int) -> None:

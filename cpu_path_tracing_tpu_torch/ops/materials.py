@@ -20,7 +20,9 @@ REFRACTION_INDEX = 2.0
 
 
 def _sqrt_safe(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    # torch.maximum and torch.minimum split a tie's gradient evenly, as
+    # jnp.maximum and jnp.minimum do (torch.clamp passes all of it).
+    return torch.sqrt(torch.maximum(x, x.new_zeros(())))
 
 
 def sample_diffuse_c(nx, ny, nz, u_phi, u_sin2):
@@ -66,20 +68,26 @@ def sample_dielectric_c(dx, dy, dz, a_quad, nx, ny, nz, front, u_choice, *,
                         float(np.float32(ior))).to(dx.dtype)
     dinv = rsqrt_safe(a_quad)
     udx, udy, udz = dx * dinv, dy * dinv, dz * dinv
-    cos_d = torch.clamp(-(udx * nx + udy * ny + udz * nz), max=1.0)
+    cos_d = torch.minimum(-(udx * nx + udy * ny + udz * nz), dx.new_ones(()))
     sin_d = _sqrt_safe(1.0 - cos_d * cos_d)
     cannot = ratio * sin_d > 1.0
     # Schlick reflectance (src/main.cpp:82-87)
     r0 = (1.0 - ratio) / (1.0 + ratio)
     r0 = r0 * r0
-    mm = torch.clamp(1.0 - cos_d, min=0.0)
+    mm = torch.maximum(1.0 - cos_d, dx.new_zeros(()))
     reflprob = r0 + (1.0 - r0) * (mm * mm * mm * mm * mm)
     reflected = cannot | (reflprob > u_choice)
     ppx = (udx + nx * cos_d) * ratio
     ppy = (udy + ny * cos_d) * ratio
     ppz = (udz + nz * cos_d) * ratio
     kk = torch.abs(1.0 - (ppx * ppx + ppy * ppy + ppz * ppz))  # abs: main.cpp:94
-    neg_sqrt_k = -torch.sqrt(kk)
+    # sqrt(kk) with a guard at kk == 0, where sqrt's derivative is infinite:
+    # a ray whose refraction leaves exactly tangent (float32 finds such rays)
+    # would otherwise turn a zero cotangent into NaN (0 * inf) and poison
+    # every parameter's gradient.  The value is sqrt(kk)'s, bit for bit.
+    zero_k = kk == 0.0
+    neg_sqrt_k = -torch.where(zero_k, torch.zeros_like(kk),
+                              torch.sqrt(torch.where(zero_k, 1.0, kk)))
     ddx = torch.where(reflected, spx, ppx + nx * neg_sqrt_k)
     ddy = torch.where(reflected, spy, ppy + ny * neg_sqrt_k)
     ddz = torch.where(reflected, spz, ppz + nz * neg_sqrt_k)

@@ -153,27 +153,43 @@ def replay_param_grads(scene, cfg, cell_ids, sample_start: int, num_samples: int
       ct: [B,3] per-cell cotangent (B == len(cell_ids)).
     Returns ``{'albedo': [N,3], 'emission': [N,3], 'background': [2,3]}``.
     """
-    from ..render import camera_rays_for_cells  # render imports the kernels
+    from ..render import camera_rays  # render imports the kernels
 
     dt = scene.dtype
     total = None
     for i in range(num_samples):
-        a0, a1 = rng_ops.item_keys(cfg.seed, cell_ids, sample_start + i)
-        u = rng_ops.camera_uniforms(a0, a1).to(dt)
-        o, d = camera_rays_for_cells(scene, cfg, cell_ids, u, dt)
-        part, _ = replay_items(scene, o, d, (a0, a1), ct, max_depth=cfg.max_depth,
+        keys, o, d = camera_rays(scene, cfg, cell_ids, sample_start + i, dt)
+        part, _ = replay_items(scene, o, d, keys, ct, max_depth=cfg.max_depth,
                                rr_depth=cfg.rr_depth, epsilon=cfg.epsilon, inf=cfg.inf,
                                acc_dtype=dt)
         total = part if total is None else total + part
     return grads_from_partials(scene.albedo, total)
 
 
-def replay_param_grads_auto(scene, cfg, cell_ids, sample_start: int, num_samples: int, ct):
-    """The production replay, following the scene's device: on the CPU the
-    batch replay above (``replay_param_grads``), on any other device the
-    kernel's gradient entry (``ops/kernels/replay.replay_param_grads_kernel``,
-    which on CUDA launches the kernel or raises)."""
+def replay_route(scene, cfg) -> str:
+    """The replay a backward runs, chosen from the scene and config before
+    anything launches (JAX ``ops/replay.py:77-84``): 'kernel' for a CUDA
+    scene the replay kernel takes (``ops/kernels/replay.replay_kernel_takes``)
+    and for any other device but the CPU (whose kernel entry launches or
+    raises); 'plain' (``replay_param_grads``, on the scene's device) for a
+    scene on the CPU and for a CUDA scene in float64, with tent jitter or
+    with more than MAX_REPLAY_SPHERES spheres."""
+    from .kernels.replay import replay_kernel_takes
+
     if scene.device.type == "cpu":
+        return "plain"
+    if scene.device.type == "cuda" and not replay_kernel_takes(cfg, scene.dtype,
+                                                               scene.num_spheres):
+        return "plain"
+    return "kernel"
+
+
+def replay_param_grads_auto(scene, cfg, cell_ids, sample_start: int, num_samples: int, ct):
+    """The production replay, on the scene's device, by ``replay_route``:
+    the batch replay above, or the kernel's gradient entry
+    (``ops/kernels/replay.replay_param_grads_kernel``, which on CUDA
+    launches the kernel or raises)."""
+    if replay_route(scene, cfg) == "plain":
         return replay_param_grads(scene, cfg, cell_ids, sample_start, num_samples, ct)
     from .kernels.replay import replay_param_grads_kernel
 

@@ -19,6 +19,8 @@ import torch
 
 from .config import RenderConfig
 from .models.camera import build_camera, get_rays
+from .ops import rng as rng_ops
+from .ops.integrator import radiance, radiance_compact
 from .ops.kernels.megakernel import check_kernel_config
 from .ops.wavefront import (
     render_wavefront,
@@ -65,6 +67,15 @@ def camera_rays_for_cells(scene, cfg: RenderConfig, cell_ids, u4, dtype):
     return get_rays(build_camera(scene.camera), s, t, u4[:, 2], u4[:, 3])
 
 
+def camera_rays(scene, cfg: RenderConfig, cell_ids, sample_idx: int, dtype):
+    """Per-(cell, sample) item keys and jittered thin-lens rays: ((a0, a1),
+    origins [B,3], directions [B,3])."""
+    a0, a1 = rng_ops.item_keys(cfg.seed, cell_ids, sample_idx)
+    u = rng_ops.camera_uniforms(a0, a1).to(dtype)
+    o, d = camera_rays_for_cells(scene, cfg, cell_ids, u, dtype)
+    return (a0, a1), o, d
+
+
 def check_contiguous_cells(cell_ids) -> None:
     """Launches regenerate cells as ``cell_ids[0] + offset``; reject any
     other id set instead of rendering the wrong cells."""
@@ -81,6 +92,9 @@ def resolve_integrator(scene, cfg: RenderConfig) -> str:
     """The route of a render, picked from the config before anything
     launches (JAX ``render.py:107-119``):
 
+    * 'batch', one batch of the cells per sample through
+      ``ops/integrator.radiance`` (differentiable, any cell-id set):
+      ``cfg.integrator='batch'``, or ``loop='scan'`` with any integrator.
     * 'pallas', the CUDA kernels: ``cfg.integrator='pallas'``, or 'auto' on
       a CUDA scene in float32 with uniform jitter.  It raises ValueError
       for float64 or tent jitter (``check_kernel_config``), as the JAX
@@ -88,18 +102,15 @@ def resolve_integrator(scene, cfg: RenderConfig) -> str:
     * 'wavefront', the plain wavefront loop: ``cfg.integrator='wavefront'``,
       or 'auto' on a CUDA scene the kernels do not render.
     * 'plain': 'auto' on the CPU, the plain version of the whole-render
-      kernel in the scene's dtype and jitter.
-
-    'batch' and ``loop='scan'`` raise (ROADMAP.md Queue 1: the geometry and camera backward)."""
-    if cfg.loop != "while":
-        raise ValueError(f"loop={cfg.loop!r}: only 'while' is ported (ROADMAP.md "
-                         "Queue 1: the geometry and camera backward brings the scan loop)")
+      kernel in the scene's dtype and jitter."""
+    if cfg.loop not in ("while", "scan"):
+        raise ValueError(f"unknown loop {cfg.loop!r}: 'while' or 'scan'")
     integ = cfg.integrator
-    if integ == "batch":
-        raise ValueError("integrator='batch' is not ported (ROADMAP.md Queue 1: it "
-                         "comes with the scan loop of the geometry and camera backward)")
-    if integ not in ("auto", "wavefront", "pallas"):
-        raise ValueError(f"unknown integrator {integ!r}: 'auto', 'wavefront' or 'pallas'")
+    if integ not in ("auto", "wavefront", "pallas", "batch"):
+        raise ValueError(f"unknown integrator {integ!r}: 'auto', 'wavefront', 'pallas' or "
+                         "'batch'")
+    if integ == "batch" or cfg.loop == "scan":
+        return "batch"
     if integ == "auto":
         if not _on_cuda(scene):
             return "plain"
@@ -110,17 +121,42 @@ def resolve_integrator(scene, cfg: RenderConfig) -> str:
     return integ
 
 
+def render_batch(scene, cfg: RenderConfig, cell_ids, sample_start: int, num_samples: int):
+    """The 'batch' route (JAX ``render.py:152-179``): per sample, the rays of
+    every cell in ``cell_ids`` (any id set) through ``radiance`` with
+    ``cfg.loop`` and ``cfg.remat``, or through ``radiance_compact`` when
+    ``cfg.compact_schedule`` is set; the samples summed in order.  [B,3]."""
+    kw = dict(max_depth=cfg.max_depth, rr_depth=cfg.rr_depth, epsilon=cfg.epsilon,
+              inf=cfg.inf, loop=cfg.loop, remat=cfg.remat)
+    acc = None
+    for i in range(num_samples):
+        keys, o, d = camera_rays(scene, cfg, cell_ids, sample_start + i, scene.dtype)
+        if cfg.compact_schedule is not None:
+            out = radiance_compact(scene, o, d, keys, schedule=cfg.compact_schedule, **kw)
+        else:
+            out = radiance(scene, o, d, keys, **kw)
+        acc = out if acc is None else acc + out
+    return acc if acc is not None else torch.zeros((cell_ids.shape[0], 3), dtype=scene.dtype,
+                                                   device=scene.device)
+
+
 def render_cells_range(scene, cfg: RenderConfig, cell_ids, sample_start: int,
                        num_samples: int, *, with_stats: bool = False):
     """SUM of radiance over samples [sample_start, sample_start+num_samples)
-    for a contiguous cell span: [B,3], unclamped, unnormalized (plus the
-    launch's stats with ``with_stats``).  Any partition of the sample range
-    sums to the same total up to float association.  Dispatch as JAX
-    ``render.py:135-150``: 'wavefront' -> ``render_wavefront``; 'pallas'
-    -> the whole-render kernel, or with ``cfg.pallas_persistent=False`` the
+    for each cell: [B,3], unclamped, unnormalized (plus the launch's stats
+    with ``with_stats``, which the batch route does not keep).  Any
+    partition of the sample range sums to the same total up to float
+    association.  Dispatch as JAX ``render.py:135-150``: 'batch' ->
+    ``render_batch`` (any id set; every other route takes a contiguous
+    span); 'wavefront' -> ``render_wavefront``; 'pallas' -> the
+    whole-render kernel, or with ``cfg.pallas_persistent=False`` the
     per-step kernel; 'plain' -> the whole-render kernel's wrapper, which
     runs its plain version for a scene on the CPU."""
     integ = resolve_integrator(scene, cfg)
+    if integ == "batch":
+        if with_stats:
+            raise ValueError("the batch route keeps no launch stats")
+        return render_batch(scene, cfg, cell_ids, sample_start, num_samples)
     args = (scene, cfg, cell_ids, sample_start, num_samples)
     if integ == "wavefront":
         return render_wavefront(*args, with_stats=with_stats)

@@ -2,7 +2,8 @@
 """Measurements of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 scripts/torch_chip_measure.py
-        [--part build|fmad|profile|scenes|train|step|probe|stream|simt|designs|all]
+        [--part build|fmad|profile|scenes|train|step|probe|stream|simt|designs|geometry|
+                geometry_step|all]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
@@ -70,6 +71,16 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   40 spheres of random_spheres, each on a chunk of the same size): median of
   3 kernel launches, with registers and spills from ptxas, segments and
   occupancy.  ``--variants a,b`` picks some.  Not part of ``all``.
+- geometry: one backward recompute (a 131,072-cell chunk, a sample) of the
+  production geometry step (box 400x400, 64 total spp, max_depth 100, p0,
+  radius, albedo and emission) with and without live-ray compaction and
+  with the backward's loop 'while' (early exit) and 'scan', and on simple
+  at the same size, compaction with each loop: wall ms, peak memory,
+  profiled launches, device ms and busy share.  About 1 minute on an H100;
+  not part of ``all``.
+- geometry_step: one whole production geometry step as ``cli invert``
+  builds it (ms, loss, peak memory, forward launches).  About 5 minutes on
+  an H100; not part of ``all``.
 
 Imports nothing of JAX.  Needs a CUDA device.
 """
@@ -271,6 +282,104 @@ def part_train(dev):
           "first_step_s": first_s, "second_step_s": second_s,
           "first_step_top_cumulative": [{"s": c, "calls": n, "fn": f} for c, n, f in rows]})
     emit({"train_profile": profiled(call)})
+
+
+GEOMETRY_CFG = dict(width=400, height=400, spp=16, max_depth=100)
+GEOMETRY_CHUNK = 1 << 17
+GEOMETRY_FIELDS = ("p0", "radius", "albedo", "emission")
+
+
+def part_geometry(dev):
+    """One backward recompute of the production geometry step (box 400x400,
+    64 total spp, max_depth 100, p0, radius, albedo and emission,
+    sample_chunk 1: the first 131,072-cell chunk, sample 0, after a warm-up
+    recompute) for each variant: on box with and without live-ray
+    compaction, each with the backward's loop 'while' (early exit, a host
+    sync a bounce) and 'scan' (every bounce); on simple at the same size,
+    compaction with 'while' and 'scan'.  The loop is set on the scan VJP's
+    config of ``grad.make_diff_render``, the rest of that config as built.
+    Reports wall ms (ended by a sync), peak device memory, and under
+    ``torch.profiler`` launches, device ms and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpu_path_tracing_tpu_torch import grad
+
+    cfg = tp.RenderConfig(**GEOMETRY_CFG)
+    ids = torch.arange(GEOMETRY_CHUNK, device=dev)
+    ct = torch.ones((GEOMETRY_CHUNK, 3), device=dev)
+    variants = (("box", True, "while"), ("box", False, "while"), ("box", True, "scan"),
+                ("box", False, "scan"), ("simple", True, "while"), ("simple", True, "scan"))
+    warmed = set()
+    for name, compact, loop in variants:
+        scene = tp.get_scene(name, cfg.width, cfg.height).to(dev)
+        start = {k: v + 0.02 for k, v in grad.split_params(scene, GEOMETRY_FIELDS).items()}
+        bwd_cfg = grad.make_diff_render(scene, cfg, 1, compact=compact).span.bwd_cfg
+        bwd_cfg = bwd_cfg.replace(loop=loop)
+
+        def recompute():
+            names, values = grad.flatten_params(start)
+            leaves = [v.detach().requires_grad_(True) for v in values]
+            sc = grad.merge_params(scene, grad.unflatten_params(names, leaves))
+            out = render.render_cells_range(sc, bwd_cfg, ids, 0, 1)
+            g = torch.autograd.grad(out, leaves, grad_outputs=ct)
+            torch.cuda.synchronize()
+            return g
+
+        if name not in warmed:
+            recompute()
+            warmed.add(name)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        recompute()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            e0.record()
+            recompute()
+            e1.record()
+            torch.cuda.synchronize()
+        window_ms = e0.elapsed_time(e1)
+        by_kernel = profiling.device_time_by_kernel(prof)
+        device_ms = sum(ms for ms, _ in by_kernel.values())
+        launches = sum(n for _, n in by_kernel.values())
+        del prof
+        emit({"geometry_recompute": f"{name} 400x400, max_depth 100, "
+                                    "p0,radius,albedo,emission, a 131072-cell chunk, 1 sample",
+              "scene": name, "compact": compact, "backward_loop": loop,
+              "compact_schedule": bwd_cfg.compact_schedule, "wall_ms": wall_ms,
+              "peak_memory_gb": peak_gb, "profiled": {"window_ms": window_ms,
+                                                      "device_ms": device_ms,
+                                                      "busy_share": device_ms / window_ms,
+                                                      "launches": launches},
+              "us_per_launch": wall_ms * 1e3 / launches, "smi": smi()})
+
+
+def part_geometry_step(dev):
+    """One whole production geometry step (``make_accum_train_step`` as
+    ``cli invert`` builds it, the module's loop and compaction): wall ms,
+    loss, peak memory, forward-kernel launches."""
+    from cpu_path_tracing_tpu_torch import grad
+
+    cfg = tp.RenderConfig(**GEOMETRY_CFG)
+    scene = tp.get_scene("box", cfg.width, cfg.height).to(dev)
+    start = {k: v + 0.02 for k, v in grad.split_params(scene, GEOMETRY_FIELDS).items()}
+    target = grad.render_target(scene, cfg, GEOMETRY_CHUNK)
+    step = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=GEOMETRY_CHUNK,
+                                      sample_chunk=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = mk.persistent_render.launches
+    t0 = time.perf_counter()
+    _, loss = step(start, target)
+    loss = float(loss)
+    emit({"geometry_step": "box 400x400, 64 total spp, max_depth 100, "
+                           "p0,radius,albedo,emission, sample_chunk 1, 131072-cell chunks",
+          "compact": True, "backward_loop": step.span.bwd_cfg.loop,
+          "step_ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "k2_launches": mk.persistent_render.launches - before,
+          "recomputes": -(-cfg.num_cells // GEOMETRY_CHUNK) * cfg.spp, "smi": smi()})
 
 
 @contextlib.contextmanager
@@ -669,7 +778,8 @@ def part_scenes(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "step",
-                                       "probe", "stream", "simt", "designs", "all"),
+                                       "probe", "stream", "simt", "designs", "geometry",
+                                       "geometry_step", "all"),
                     default="all")
     ap.add_argument("--variants", default=None,
                     help="--part designs: comma-separated names of DESIGNS (default: all)")
@@ -694,6 +804,10 @@ def main() -> int:
         part_simt(dev)
     if args.part == "designs":
         part_designs(dev, args.variants.split(",") if args.variants else None)
+    if args.part == "geometry":
+        part_geometry(dev)
+    if args.part == "geometry_step":
+        part_geometry_step(dev)
     print("smi", smi(), flush=True)
     return 0
 

@@ -342,6 +342,72 @@ def test_replay_kernel_repeats_bitwise_on_a_full_train_chunk(cuda):
     assert torch.equal(first, second) and st["lanes"] < kw["n_items"]
 
 
+def _leaf_grads(scene, cfg, fields):
+    """The gradient of the full-image loss against a 0.9x target, by leaf."""
+    from cpu_path_tracing_tpu_torch import grad
+
+    target = grad.render_target(scene, cfg) * 0.9
+    _, g = grad.make_accum_loss_grad(scene, cfg, sample_chunk=1)(
+        grad.split_params(scene, fields), target)
+    return {n: v.double().cpu() for n, v in zip(*grad.flatten_params(g))}
+
+
+@pytest.mark.parametrize("name", ["simple", "box"])
+def test_geometry_gradients_match_the_cpu_in_float64(cuda, name):
+    """Every optimizable field's gradient (the scan VJP) on the card within
+    1e-9 of the CPU's, relative to the field's largest magnitude (the
+    camera's over its eight leaves: ``origin_advance``'s is zero up to
+    rounding); box's p0 and radius gradients exactly 0."""
+    from cpu_path_tracing_tpu_torch import grad
+
+    cfg = tp.RenderConfig(width=16, height=12, spp=2, max_depth=100)
+    ref = _leaf_grads(tp.get_scene(name, 16, 12, dtype=torch.float64), cfg, grad.OPTIMIZABLE)
+    got = _leaf_grads(tp.get_scene(name, 16, 12, dtype=torch.float64).to(cuda), cfg,
+                      grad.OPTIMIZABLE)
+    for n, r in ref.items():
+        field = [m for m in ref if m.split(".")[0] == n.split(".")[0]]
+        scale = max(float(ref[m].abs().max()) for m in field)
+        assert float((got[n] - r).abs().max()) <= 1e-9 * scale, n
+    if name == "box":
+        assert float(got["p0"].abs().max()) == 0.0 and float(got["radius"].abs().max()) == 0.0
+
+
+def test_geometry_gradients_repeat_bitwise_on_the_card(cuda):
+    """Float32 p0, radius and camera gradients: two backward passes give
+    bitwise-equal, finite gradients, the forward through the forward kernel
+    and no replay kernel launch."""
+    cfg = tp.RenderConfig(width=32, height=24, spp=2, max_depth=100)
+    scene = tp.get_scene("simple", 32, 24).to(cuda)
+    fwd, rep = mk.persistent_render.launches, rk.replay_persistent.launches
+    first = _leaf_grads(scene, cfg, ("p0", "radius", "camera"))
+    second = _leaf_grads(scene, cfg, ("p0", "radius", "camera"))
+    assert mk.persistent_render.launches > fwd and rk.replay_persistent.launches == rep
+    for n in first:
+        assert torch.equal(first[n], second[n]) and bool(torch.isfinite(first[n]).all()), n
+
+
+@pytest.mark.parametrize("name,dtype,jitter", [("random_spheres", torch.float32, "uniform"),
+                                               ("box", torch.float64, "uniform"),
+                                               ("box", torch.float32, "tent")])
+def test_replay_backward_takes_the_plain_replay_on_the_card(cuda, name, dtype, jitter):
+    """A CUDA scene the replay kernel does not take gets the plain replay on
+    the card: no replay kernel launch, albedo and emission gradients within
+    1e-9 (float64) or 1e-3 (float32) of each field's largest magnitude of
+    the CPU's."""
+    from cpu_path_tracing_tpu_torch.ops.replay import replay_route
+
+    cfg = tp.RenderConfig(width=16, height=12, spp=2, max_depth=100, jitter=jitter)
+    ref = _leaf_grads(tp.get_scene(name, 16, 12, dtype=dtype), cfg, ("albedo", "emission"))
+    scene = tp.get_scene(name, 16, 12, dtype=dtype).to(cuda)
+    assert replay_route(scene, cfg) == "plain"
+    rep = rk.replay_persistent.launches
+    got = _leaf_grads(scene, cfg, ("albedo", "emission"))
+    assert rk.replay_persistent.launches == rep
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for n, r in ref.items():
+        assert float((got[n] - r).abs().max()) <= tol * float(r.abs().max()), n
+
+
 @pytest.mark.parametrize("n_arrays", [2, 8])
 @pytest.mark.parametrize("op", sorted(pk.OPS))
 def test_op_chain_kernel_matches_plain_version(cuda, op, n_arrays):

@@ -99,29 +99,48 @@ def test_accumulated_gradient_matches_jax():
 
 
 def test_non_replay_fields_raise():
+    """A field outside OPTIMIZABLE raises; p0, outside the replay's fields,
+    differentiates (the scan VJP) together with albedo."""
     cfg = tp.RenderConfig(width=8, height=6, spp=1, max_depth=4)
-    scene = tp.get_scene("box", 8, 6)
+    scene = tp.get_scene("simple", 8, 6, dtype=torch.float64)
     render_sum = grad.make_diff_render_span(scene, cfg, 1)
-    with pytest.raises(ValueError, match="the geometry and camera backward"):
-        render_sum(grad.split_params(scene, ("albedo", "p0")), torch.arange(cfg.num_cells))
-    step = grad.make_accum_train_step(scene, cfg, 1e-2)
-    with pytest.raises(ValueError, match="the geometry and camera backward"):
-        step(grad.split_params(scene, ("radius",)), torch.zeros((cfg.num_cells, 3)))
+    ids = torch.arange(cfg.num_cells)
+    with pytest.raises(ValueError, match="cannot optimize"):
+        render_sum({"ior": torch.tensor(2.0)}, ids)
     with pytest.raises(ValueError, match="cannot optimize"):
         grad.split_params(scene, ("ior",))
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in grad.split_params(scene, ("albedo", "p0")).items()}
+    g = torch.autograd.grad(render_sum(params, ids).sum(), tuple(params.values()))
+    assert all(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0 for x in g)
 
 
 @pytest.mark.parametrize("case", ["float64", "tent", "spheres"])
 def test_cuda_scene_without_kernel_support_raises(monkeypatch, case):
-    """On a CUDA scene the differentiable render raises for what the
-    kernels do not do before it runs anything.  (No card here: the device
-    check is patched.)"""
-    monkeypatch.setattr(grad, "_on_cuda", lambda scene: True)
+    """A CUDA scene the replay kernel does not take (float64, tent jitter,
+    more than MAX_REPLAY_SPHERES spheres) gets the plain replay on its own
+    device, chosen before anything runs; the differentiable render builds
+    for it.  A float32, uniform-jitter box takes the kernel.  (No card here:
+    a CPU scene stands in, its device patched.)"""
+    from cpu_path_tracing_tpu_torch.ops import replay as replay_ops
+    from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
+
+    monkeypatch.setattr(tp.Scene, "device", property(lambda self: torch.device("cuda", 0)))
     scene = tp.get_scene("random_spheres" if case == "spheres" else "box", 8, 6,
                          dtype=torch.float64 if case == "float64" else torch.float32)
-    cfg = tp.RenderConfig(width=8, height=6, jitter="tent" if case == "tent" else "uniform")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        grad.make_diff_render_span(scene, cfg, 1)
+    cfg = tp.RenderConfig(width=8, height=6, max_depth=8,
+                          jitter="tent" if case == "tent" else "uniform")
+    assert replay_ops.replay_route(scene, cfg) == "plain"
+    assert replay_ops.replay_route(tp.get_scene("box", 8, 6), cfg.replace(jitter="uniform")) \
+        == "kernel"
+    grad.make_diff_render_span(scene, cfg, 1)
+    calls = []
+    monkeypatch.setattr(replay_ops, "replay_param_grads", lambda *a: calls.append(a) or "plain")
+    monkeypatch.setattr(rk, "replay_param_grads_kernel",
+                        lambda *a: pytest.fail("the replay kernel was asked for"))
+    ids = torch.arange(cfg.num_cells)
+    assert replay_ops.replay_param_grads_auto(scene, cfg, ids, 0, 1, None) == "plain"
+    assert len(calls) == 1 and calls[0][0] is scene
 
 
 def test_cli_invert_prints_json_lines(capsys):

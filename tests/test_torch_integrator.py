@@ -5,6 +5,12 @@ The same random rays, state, uniforms and depth go through both
 scale-aware.  Float32: the two frameworks' sqrt/rsqrt/sin/cos differ by an
 ulp on some rays, so fields agree within 1e-5 scale-aware on >= 99.9% of
 rays (a discrete decision can flip on the rest).
+
+Then the closed-form oracles of ``tests/test_integrator.py`` for both loops
+of ``radiance`` ('while' and 'scan'): the black enclosure, the furnace
+series, the exact sky, roulette with p > 1, no NaN under autograd (with and
+without checkpointed bounces), and the scan loop bitwise equal to the while
+loop and within 1e-12 of the JAX scan loop.
 """
 
 import dataclasses
@@ -151,3 +157,122 @@ def test_lowest_index_wins_ties():
     jt, jhid, _ = jax_intersect(jtie, jnp.asarray(o), jnp.asarray(d))
     np.testing.assert_array_equal(hid.numpy(), np.asarray(jhid))
     np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-13)
+
+
+# ---- the closed-form oracles of tests/test_integrator.py, for both loops ----
+
+from cpu_path_tracing_tpu import CameraConfig as JaxCameraConfig  # noqa: E402
+from cpu_path_tracing_tpu import DIFFUSE as JAX_DIFFUSE  # noqa: E402
+from cpu_path_tracing_tpu import scene_from_spheres as jax_scene_from_spheres  # noqa: E402
+from cpu_path_tracing_tpu.ops import rng as jax_rng  # noqa: E402
+from cpu_path_tracing_tpu_torch.ops import rng as rng_ops  # noqa: E402
+
+
+def _keys(n, seed=0):
+    return rng_ops.item_keys(seed, torch.arange(n), 0)
+
+
+def _enclosure(albedo, emission, dtype=torch.float64):
+    """A diffuse sphere of radius 10 around the origin (tests/test_integrator.py)."""
+    cam = tp.CameraConfig.make((0, 0, 0), (0, 0, -1), 1.0, 0.5, 0.0, dtype=dtype)
+    return tp.scene_from_spheres([(10.0, (0.0, 0.0, 0.0), emission, albedo, tp.DIFFUSE)], cam,
+                                 anchor_toward=(0.0, 0.0, 0.0), dtype=dtype)
+
+
+def _down(b, dtype=torch.float64):
+    return torch.zeros((b, 3), dtype=dtype), torch.tensor([[0.0, 0.0, -1.0]], dtype=dtype).repeat(b, 1)
+
+
+@pytest.mark.parametrize("loop", ["while", "scan"])
+def test_black_enclosure_single_emission(loop):
+    """albedo 0: the path ends after one bounce with exactly the emission."""
+    o, d = _down(8)
+    out = tint.radiance(_enclosure((0.0, 0.0, 0.0), (1.0, 2.0, 3.0)), o, d, _keys(8),
+                        max_depth=50, loop=loop)
+    np.testing.assert_allclose(out.numpy(), np.tile([1.0, 2.0, 3.0], (8, 1)), atol=1e-12)
+
+
+@pytest.mark.parametrize("loop", ["while", "scan"])
+def test_furnace_geometric_series(loop):
+    """Emissive enclosure with albedo a: E[L] = e / (1 - a) (emission before
+    roulette, src/main.cpp:126-137; roulette keeps it unbiased).  4000
+    paths, ~4 sigma."""
+    a, e, b = 0.5, 0.3, 4000
+    o, d = _down(b)
+    out = tint.radiance(_enclosure((a, a, a), (e, e, e)), o, d, _keys(b), max_depth=200,
+                        loop=loop).numpy()
+    stderr = out.std() / np.sqrt(b * 3)
+    assert abs(out.mean() - e / (1 - a)) < max(4 * stderr, 0.01)
+
+
+@pytest.mark.parametrize("loop", ["while", "scan"])
+def test_sky_gradient_exact(loop):
+    """A ray that misses everything returns the sky gradient (src/main.cpp:115-120)."""
+    cam = tp.CameraConfig.make((0, 0, 0), (0, 0, -1), 1.0, 0.5, 0.0, dtype=torch.float64)
+    sc = tp.scene_from_spheres([(0.5, (0.0, 0.0, 100.0), (0, 0, 0), (1, 1, 1), tp.DIFFUSE)], cam,
+                               anchor_toward=(0, 0, 99), dtype=torch.float64)
+    d_raw = np.array([[0.0, 1.0, -1.0], [0.0, -2.0, -2.0], [1.0, 0.0, 0.0]])
+    out = tint.radiance(sc, torch.zeros((3, 3), dtype=torch.float64), torch.from_numpy(d_raw),
+                        _keys(3), max_depth=10, loop=loop).numpy()
+    for i in range(3):
+        t = 0.5 * (d_raw[i][1] / np.linalg.norm(d_raw[i]) + 1.0)
+        np.testing.assert_allclose(out[i], (1 - t) * np.ones(3) + t * np.array([0.5, 0.7, 1.0]),
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("loop", ["while", "scan"])
+def test_rr_p_above_one_never_kills(loop):
+    """albedo 1.92 (the disco light): survival p > 1, so roulette only damps
+    by 1/p and every path lives to max_depth with the same radiance."""
+    a, md = 1.92, 30
+    o, d = _down(64)
+    out = tint.radiance(_enclosure((a, a, a), (1.0, 1.0, 1.0)), o, d, _keys(64), max_depth=md,
+                        rr_depth=4, loop=loop).numpy()
+    thr, expect = 1.0, 0.0
+    for k in range(md):
+        expect += thr
+        thr *= a if k <= 4 else 1.0
+    np.testing.assert_allclose(out, expect, rtol=1e-10)
+    assert out.std() < 1e-12
+
+
+def test_scan_equals_while_and_the_jax_scan():
+    """The scan loop bitwise equal to the while loop, both within 1e-12 of
+    the JAX package's scan loop on the same rays; live_per_depth sums to the
+    while loop's segments."""
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(256, 3))
+    kw = dict(max_depth=64, rr_depth=4)
+    sc = _enclosure((0.5, 0.6, 0.7), (0.2, 0.1, 0.05))
+    o = torch.zeros((256, 3), dtype=torch.float64)
+    a, st_a = tint.radiance(sc, o, torch.from_numpy(d), _keys(256), loop="while",
+                            with_stats=True, **kw)
+    b, st_b = tint.radiance(sc, o, torch.from_numpy(d), _keys(256), loop="scan",
+                            with_stats=True, **kw)
+    assert torch.equal(a, b)
+    assert int(st_b["segments"]) == st_a["segments"] and st_b["live_per_depth"].shape == (64,)
+    jcam = JaxCameraConfig.make((0, 0, 0), (0, 0, -1), 1.0, 0.5, 0.0, dtype=jnp.float64)
+    js = jax_scene_from_spheres([(10.0, (0.0, 0.0, 0.0), (0.2, 0.1, 0.05), (0.5, 0.6, 0.7),
+                                  JAX_DIFFUSE)], jcam, anchor_toward=(0.0, 0.0, 0.0),
+                                dtype=jnp.float64)
+    jkeys = jax_rng.item_keys(0, jnp.arange(256, dtype=jnp.int32), 0)
+    ref = jint.radiance(js, jnp.zeros((256, 3), jnp.float64), jnp.asarray(d), jkeys, loop="scan",
+                        **kw)
+    np.testing.assert_allclose(b.numpy(), np.asarray(ref), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("loop", ["while", "scan"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_no_nans_under_grad(loop, remat):
+    """Gradients of the summed radiance with respect to p0, radius, albedo
+    and emission are finite in float32 (masked miss and dead rays must not
+    poison the backward), with and without checkpointed bounces."""
+    sc = _enclosure((0.5, 0.5, 0.5), (0.3, 0.3, 0.3), dtype=torch.float32)
+    leaves = [getattr(sc, f).clone().requires_grad_(True)
+              for f in ("p0", "radius", "albedo", "emission")]
+    sc.p0, sc.radius, sc.albedo, sc.emission = leaves
+    d = torch.from_numpy(np.random.default_rng(4).normal(size=(32, 3)).astype(np.float32))
+    out = tint.radiance(sc, torch.zeros((32, 3)), d, _keys(32), max_depth=8, loop=loop,
+                        remat=remat)
+    for g in torch.autograd.grad(out.sum(), leaves):
+        assert bool(torch.isfinite(g).all())

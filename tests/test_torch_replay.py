@@ -103,9 +103,10 @@ def test_replay_zero_albedo_documented_deviation():
 
 
 def test_replay_auto_follows_the_scene_device(monkeypatch):
-    """On the CPU the production replay is the batch replay; a scene on any
-    other device goes to the kernel's gradient entry (which on CUDA launches
-    or raises), never to the batch replay."""
+    """On the CPU the production replay is the batch replay; a CUDA scene
+    the kernel takes (float32, uniform jitter, at most MAX_REPLAY_SPHERES
+    spheres) goes to the kernel's gradient entry, never to the batch
+    replay."""
     from cpu_path_tracing_tpu_torch.ops import replay as replay_ops
     from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
 
@@ -121,6 +122,7 @@ def test_replay_auto_follows_the_scene_device(monkeypatch):
     monkeypatch.setattr(rk, "replay_param_grads_kernel", lambda *a: calls.append(a) or "kernel")
     monkeypatch.setattr(replay_ops, "replay_param_grads",
                         lambda *a: pytest.fail("the batch replay ran for a non-CPU scene"))
-    on_card = type("OnCard", (), {"device": torch.device("cuda", 0)})()
+    on_card = type("OnCard", (), {"device": torch.device("cuda", 0), "dtype": torch.float32,
+                                  "num_spheres": 8})()
     assert replay_ops.replay_param_grads_auto(on_card, cfg, ids, 1, 2, ct) == "kernel"
     assert len(calls) == 1 and calls[0][0] is on_card

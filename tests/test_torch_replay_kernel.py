@@ -147,7 +147,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_do(case):
     table, cam = mk.pack_scene(scene, dtype).to("meta"), mk.pack_camera(scene, dtype).to("meta")
     ct = torch.zeros((cfg.num_cells, 3), dtype=dtype, device="meta")
     kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=cfg.num_cells)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="float32|jitter|spheres"):
         rk.replay_persistent(table, cam, (0, 0), ct, **kw)
     if case == "spheres":
         assert scene.num_spheres > rk.MAX_REPLAY_SPHERES

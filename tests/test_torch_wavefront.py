@@ -170,10 +170,12 @@ def test_cpu_loop_never_captures_a_graph(monkeypatch):
 def test_integrator_dispatch(monkeypatch):
     """'wavefront' -> render_wavefront; 'pallas' -> the whole-render kernel,
     with pallas_persistent=False the per-step kernel; 'auto' on the CPU ->
-    the whole-render kernel's plain version; 'batch' raises.  Routing only."""
+    the whole-render kernel's plain version; 'batch', and loop='scan' with
+    any integrator, -> the batch route.  Routing only."""
     calls = []
     for route, fn in (("wavefront", "render_wavefront"), ("persistent",
-                      "render_wavefront_persistent"), ("per-step", "render_wavefront_per_step")):
+                      "render_wavefront_persistent"), ("per-step", "render_wavefront_per_step"),
+                      ("batch", "render_batch")):
         monkeypatch.setattr(render, fn, lambda *a, route=route, **k: calls.append(route) or a[2])
     cfg = tp.RenderConfig(width=8, height=6, spp=1, max_depth=8)
     scene = tp.get_scene("box", 8, 6)
@@ -183,8 +185,14 @@ def test_integrator_dispatch(monkeypatch):
                                                      pallas_persistent=persistent),
                                   _ids(cfg), 0, 1)
     assert calls == ["wavefront", "persistent", "per-step", "persistent", "persistent"]
-    with pytest.raises(ValueError, match="batch.*Queue 1.*the geometry and camera backward"):
-        render.render_cells_range(scene, cfg.replace(integrator="batch"), _ids(cfg), 0, 1)
+    calls.clear()
+    for integ in ("batch", "auto", "pallas", "wavefront"):
+        render.render_cells_range(scene, cfg.replace(integrator=integ, loop="scan"), _ids(cfg),
+                                  0, 1)
+    render.render_cells_range(scene, cfg.replace(integrator="batch"), _ids(cfg), 0, 1)
+    assert calls == ["batch"] * 5
+    with pytest.raises(ValueError, match="unknown loop"):
+        render.resolve_integrator(scene, cfg.replace(loop="fori"))
     with pytest.raises(ValueError, match="unknown integrator"):
         render.resolve_integrator(scene, cfg.replace(integrator="xla"))
 
