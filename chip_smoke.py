@@ -119,12 +119,47 @@ script exits non-zero.
    (float32); the seconds of the CPU and card parts.  Then the three
    phases' seconds in all (``geometry_phases``).
 
+17-23. The single-process host runtime and the suite, each through the CLI
+   with the kernels' launch counts set to 0 just before it and read just
+   after, each record with its seconds (``host_runtime_phases``: their
+   sum).  tiled_path: ``cli render`` of disco 1024x768, 32 total spp, in 6
+   tiles with ``--inject-fault 1:2,4``: 6 forward-kernel launches, the
+   image (from the checkpoint's sums) bitwise equal to ``render_image``'s
+   and the PNG byte for byte; past ``--max-retries`` the run raises
+   ``TileRenderError`` after 3 tiles, and the rerun from the checkpoint
+   launches 3 and gives the same bits; the host-clock time of 1, 6 and 24
+   tiles beside the one-pass render, and of a checkpoint save.
+   progressive_path: ``--checkpoint --flush-every 2 --preview`` at 16
+   total spp (2 launches), then the same command at 32 resumes (2 more):
+   sums and image bitwise equal to an uninterrupted progressive render,
+   max |delta| against the one pass (<= 1e-5), the preview written and by
+   which writer (native or NumPy), the cost of a flush.  invert_resume:
+   the production inverse, 4 steps straight against 2 steps, a save, a new
+   step function, a load and 2 more (10 forward and 10 replay launches):
+   params and Adam's state bitwise, the counter on the host and the
+   moments on the card; a changed lr refused; the same through ``cli
+   invert --checkpoint`` (the checkpoints bitwise equal).  scene_file:
+   ``save_scene`` of box_mirror, then ``--scene-file``: 1 launch, bitwise
+   equal to the registered scene.  debug_nans: a guarded render (1
+   launch) and a guarded inverse step (10 forward, 5 replay) pass; a scene
+   file with a NaN light raises ``FloatingPointError``.  bench_suite: ``cli
+   bench --suite --suite-scale 1``: a line per row (seconds, Mrays/s,
+   occupancy, lane efficiency, path-length percentiles, forward launches;
+   every row on the kernel), the inverse row (5 and 5 launches a step;
+   the steps/s of each of 3 windows of 3 steps) and the markdown table it
+   wrote (``--suite-out``).  Then, outside that window, each row's first
+   and last launch again at its shapes (table, camera, cell_start 0,
+   sample_start, items): the first and the last 131,072 items of each
+   bitwise equal to the plain version, with the plain version's time on
+   those items and the kernel's time on a launch of the first 131,072.
+   bench_headline: ``scripts/torch_bench.py``'s JSON line.
+
 Then a ``{"kernels": [...]}`` line (five kernels, each with its launches on
 its path, its time, its plain version's, its bound, the least time the card
 could take for the same work at its published peaks, which side binds, the
 probe-model time of the render kernels, and a library call's time where one
 PyTorch call computes the same; the whole-render kernel also its launches on
-the geometry path; the whole-render and replay kernels also
+the geometry path and on each host-runtime path; the whole-render and replay kernels also
 with their registers, the threads resident an SM and the launch's occupancy;
 the per-step kernel's bound is the
 render's, equal to the whole-render kernel's, with the floor of the
@@ -222,6 +257,19 @@ def replay_deviation(got, ref, n_spheres: int):
     return rec, ok, worst
 
 
+def plain_items(table, cam, dyn, i0: int, i1: int, *, cfg, n_cells: int, ior: float):
+    """Items [i0, i1) of a forward-kernel launch by its plain version, as
+    ``persistent_render_reference`` computes them (an item's radiance
+    depends on its index alone): [3, i1 - i0]."""
+    from cpu_path_tracing_tpu_torch.ops.integrator import radiance
+    from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+
+    spheres, camera = mk._unpack(table, cam, ior)
+    _, keys, o, d = mk.item_rays(cfg, camera, dyn, n_cells, i0, i1, table.dtype, table.device)
+    return radiance(spheres, o, d, keys, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
+                    epsilon=cfg.epsilon, inf=cfg.inf).T
+
+
 def cuda_time_ms(fn, runs: int = 3):
     """Median CUDA-event time of fn() after one warm-up; returns (ms, last result)."""
     import torch
@@ -236,6 +284,394 @@ def cuda_time_ms(fn, runs: int = 3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2], out
+
+
+def host_runtime(dev, k2: dict, k3: dict) -> None:
+    """Phases 17-23: the single-process host runtime and the suite, each
+    driven through the CLI (``cli.main``) with the kernels' launch counts
+    set to 0 just before and read just after; comparisons run outside those
+    windows.  Files go to a temporary directory, removed at the end."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cpu_path_tracing_tpu_torch as tp
+    from cpu_path_tracing_tpu_torch import cli, grad
+    from cpu_path_tracing_tpu_torch.models.io import load_scene, save_scene
+    from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+    from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
+    from cpu_path_tracing_tpu_torch.orchestrator import TileRenderError, TileState, render_tiled
+    from cpu_path_tracing_tpu_torch.render import finalize_image, sample_chunk_for
+    from cpu_path_tracing_tpu_torch.utils import checkpoint as ckpt
+    from cpu_path_tracing_tpu_torch.utils import native
+    from cpu_path_tracing_tpu_torch.utils.image import write_png
+
+    def zero():
+        mk.persistent_render.launches = rk.replay_persistent.launches = 0
+
+    def counts():
+        return mk.persistent_render.launches, rk.replay_persistent.launches
+
+    def run_cli(argv):
+        """cli.main(argv) with its stdout and stderr captured; (rc, out, err)."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    def shown(argv):
+        """The command line as a user types it, without the temporary directory."""
+        return "python -m cpu_path_tracing_tpu_torch.cli " + " ".join(
+            a.replace(work + os.sep, "") for a in argv)
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    k2["launches_host_runtime"], k3["launches_host_runtime"] = {}, {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    work = tmp.name
+    disco = ["--scene", "box_mirror", "--width", "1024", "--height", "768", "--total-spp", "32",
+             "--max-depth", "100"]
+    cfg = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
+    scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
+    ref = tp.render_image(scene, cfg)  # the one-pass image every phase is held to
+    ref_png = os.path.join(work, "ref.png")
+    write_png(ref_png, ref.cpu())
+    ref_bytes = open(ref_png, "rb").read()
+
+    def image_of(sums, spp):
+        return finalize_image(torch.from_numpy(sums).to(dev) / spp, cfg)
+
+    # ---- 17. tiled_path ----
+    t_phase = time.perf_counter()
+    tile = cfg.num_cells // 6
+    tiles, tiles2 = os.path.join(work, "tiles.npz"), os.path.join(work, "tiles2.npz")
+    out_png = os.path.join(work, "tiled.png")
+    argv = ["render", *disco, "-o", out_png, "--tile-cells", str(tile), "--checkpoint", tiles]
+    zero()
+    t0 = time.perf_counter()
+    rc, _, _ = run_cli([*argv, "--inject-fault", "1:2,4"])
+    cli_s = time.perf_counter() - t0
+    k2_tiled = counts()[0]
+    state = TileState.load(tiles)
+    bitwise = bool(torch.equal(image_of(state.sums, cfg.spp), ref))
+    png_equal = open(out_png, "rb").read() == ref_bytes
+    # Past --max-retries: the run fails, and a rerun renders only what is missing.
+    zero()
+    try:
+        run_cli(["render", *disco, "-o", out_png, "--tile-cells", str(tile), "--checkpoint",
+                 tiles2, "--inject-fault", "3:3", "--max-retries", "2"])
+        raised = None
+    except TileRenderError as err:
+        raised = repr(err.__cause__)
+    k2_failed = counts()[0]
+    done_after_failure = TileState.load(tiles2).done.tolist()
+    zero()
+    rc2, _, _ = run_cli(["render", *disco, "-o", out_png, "--tile-cells", str(tile),
+                         "--checkpoint", tiles2])
+    k2_resume = counts()[0]
+    resumed_bitwise = bool(torch.equal(image_of(TileState.load(tiles2).sums, cfg.spp), ref))
+    resumed_png = open(out_png, "rb").read() == ref_bytes
+    # The tiled render against the one-pass render (host clock, ended by a sync).
+    untiled_s = min(wall(lambda: tp.render_image(scene, cfg).cpu())[0] for _ in range(3))
+    tiled_s = {}
+    for n_tiles in (1, 6, 24):
+        tiled_s[n_tiles] = min(wall(lambda: render_tiled(scene, cfg, tile_cells=cfg.num_cells
+                                                         // n_tiles).cpu())[0]
+                               for _ in range(3))
+    save_s = min(wall(lambda: state.save(tiles))[0] for _ in range(3))
+    rec = {"phase": "tiled_path", "command": shown([*argv, "--inject-fault", "1:2,4"]),
+           "tiles": len(state.done), "tile_cells": tile, "k2_launches": k2_tiled,
+           "cli_seconds": cli_s, "bitwise": bitwise, "png_equal": png_equal,
+           "past_max_retries": raised, "done_after_failure": done_after_failure,
+           "k2_launches_failed_run": k2_failed, "k2_launches_resume": k2_resume,
+           "resumed_bitwise": resumed_bitwise, "resumed_png_equal": resumed_png,
+           "untiled_seconds": untiled_s,
+           "tiled_seconds_by_tiles": tiled_s, "tile_checkpoint_save_seconds": save_s,
+           "checkpoint_mb": os.path.getsize(tiles) / 1e6}
+    rec["ok"] = (rc == 0 and rc2 == 0 and k2_tiled == 6 and bitwise and png_equal
+                 and raised is not None and "InjectedFault" in raised
+                 and done_after_failure == [True] * 3 + [False] * 3 and k2_failed == 3
+                 and k2_resume == 3 and resumed_bitwise and resumed_png)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the tiled render: launches, bits or the resume")
+    k2["launches_host_runtime"]["tiled_path"] = k2_tiled
+
+    # ---- 18. progressive_path ----
+    t_phase = time.perf_counter()
+    prog, prog2 = os.path.join(work, "progress.npz"), os.path.join(work, "progress2.npz")
+    preview = os.path.join(work, "preview.png")
+    argv = ["render", *disco[:-4], "--max-depth", "100", "-o", out_png, "--checkpoint", prog,
+            "--flush-every", "2", "--preview", preview]
+    zero()
+    rc, _, _ = run_cli([*argv, "--total-spp", "16"])  # stopped after two flushes
+    k2_first = counts()[0]
+    stopped_at = ckpt.ProgressiveState.load(prog).spp_done
+    zero()
+    rc2, _, _ = run_cli([*argv, "--total-spp", "32"])  # the same command to 32: resumes
+    k2_resumed = counts()[0]
+    resumed = ckpt.ProgressiveState.load(prog)
+    straight = ckpt.render_progressive(scene, cfg, prog2, flush_every=2)
+    straight_state = ckpt.ProgressiveState.load(prog2)
+    img = image_of(resumed.sums, cfg.spp)
+    delta = float((img - ref).abs().max())
+    flush_s = min(wall(lambda: resumed.save(prog))[0] for _ in range(3))
+    rec = {"phase": "progressive_path",
+           "command": shown(argv) + " --total-spp 16, then --total-spp 32",
+           "k2_launches_first": k2_first, "stopped_at_spp": stopped_at,
+           "k2_launches_resumed": k2_resumed, "spp_done": resumed.spp_done,
+           "sums_bitwise_vs_uninterrupted": bool(np.array_equal(resumed.sums,
+                                                                straight_state.sums)),
+           "image_bitwise_vs_uninterrupted": bool(torch.equal(img, straight)),
+           "max_abs_delta_vs_single_pass": delta,
+           "png_written": os.path.exists(preview), "writer": "native" if native.available()
+           else "numpy", "checkpoint_flush_seconds": flush_s,
+           "checkpoint_mb": os.path.getsize(prog) / 1e6}
+    rec["ok"] = (rc == 0 and rc2 == 0 and k2_first == 2 and stopped_at == 4 and k2_resumed == 2
+                 and resumed.spp_done == 8 and rec["sums_bitwise_vs_uninterrupted"]
+                 and rec["image_bitwise_vs_uninterrupted"] and delta <= 1e-5
+                 and rec["png_written"])
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the progressive render: launches, bits or the preview")
+    k2["launches_host_runtime"]["progressive_path"] = k2_first + k2_resumed
+
+    # ---- 19. invert_resume ----
+    t_phase = time.perf_counter()
+    icfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    box = tp.get_scene("box", icfg.width, icfg.height).to(dev)
+    chunk = 1 << 17
+    target = grad.render_target(box, icfg, chunk)
+    fields = ("albedo", "emission")
+    p0 = {k: v + 0.02 for k, v in grad.split_params(box, fields).items()}
+    fp = ckpt.invert_fingerprint(box, icfg, fields, 1e-2, cell_chunk=chunk, sample_chunk=1)
+    straight_fn = grad.make_accum_train_step(box, icfg, 1e-2, cell_chunk=chunk)
+    p = p0
+    for _ in range(4):
+        p, _ = straight_fn(p, target)
+    first = grad.make_accum_train_step(box, icfg, 1e-2, cell_chunk=chunk)
+    q = p0
+    for _ in range(2):
+        q, _ = first(q, target)
+    inv = os.path.join(work, "inv.npz")
+    sd = first.state_dict()
+    ckpt.InvertState(sd["params"], sd["optimizer"], 2, fp).save(inv)
+    st = ckpt.load_or_init_invert(inv, fp, p0)
+    again = grad.make_accum_train_step(box, icfg, 1e-2, cell_chunk=chunk)
+    again.load_state_dict({"params": st.params, "optimizer": st.opt_state})
+    q = st.params
+    zero()
+    for _ in range(2):
+        q, _ = again(q, target)
+    torch.cuda.synchronize()
+    k2_api, k3_api = counts()
+    a, b = straight_fn.state_dict()["optimizer"]["state"], again.state_dict()["optimizer"]["state"]
+    params_bitwise = all(torch.equal(p[k], q[k]) for k in p)
+    adam_bitwise = all(torch.equal(a[i][key], b[i][key]) for i in a
+                       for key in ("step", "exp_avg", "exp_avg_sq"))
+    devices = sorted({f"{key}:{b[i][key].device.type}:{b[i][key].dtype}" for i in b
+                      for key in ("step", "exp_avg", "exp_avg_sq")})
+    try:
+        ckpt.load_or_init_invert(inv, ckpt.invert_fingerprint(box, icfg, fields, 5e-3,
+                                                              cell_chunk=chunk, sample_chunk=1),
+                                 p0)
+        lr_refused = False
+    except ValueError:
+        lr_refused = True
+    # The same through the CLI: 2 steps, then the same command to 4 resumes,
+    # against 4 uninterrupted steps.
+    iargv = ["invert", "--scene", "box", "--width", "400", "--height", "400", "--total-spp",
+             "64", "--max-depth", "100"]
+    c_path, d_path = os.path.join(work, "c.npz"), os.path.join(work, "d.npz")
+    t0 = time.perf_counter()
+    run_cli([*iargv, "--steps", "4", "--checkpoint", d_path])
+    run_cli([*iargv, "--steps", "2", "--checkpoint", c_path])
+    zero()
+    rc, out, err = run_cli([*iargv, "--steps", "4", "--checkpoint", c_path])
+    k2_cli, k3_cli = counts()
+    cli_s = time.perf_counter() - t0
+    zc, zd = np.load(c_path), np.load(d_path)
+    cli_bitwise = sorted(zc.files) == sorted(zd.files) and all(
+        np.array_equal(zc[k], zd[k]) for k in zc.files)
+    try:
+        run_cli([*iargv, "--steps", "5", "--checkpoint", c_path, "--lr", "5e-3"])
+        cli_refused = False
+    except ValueError:
+        cli_refused = True
+    rec = {"phase": "invert_resume", "config": "box 400x400, 64 total spp, max_depth 100, "
+           "albedo+emission, 131,072-cell chunks", "params_bitwise": params_bitwise,
+           "adam_bitwise": adam_bitwise, "adam_state": devices,
+           "k2_launches_resumed_2_steps": k2_api, "k3_launches_resumed_2_steps": k3_api,
+           "lr_refused": lr_refused, "cli_resumed": "at step 2" in err,
+           "cli_steps_printed": [json.loads(ln)["step"] for ln in out.splitlines()
+                                 if ln.startswith("{")],
+           "cli_checkpoints_bitwise": cli_bitwise, "cli_lr_refused": cli_refused,
+           "k2_launches_cli_resume": k2_cli, "k3_launches_cli_resume": k3_cli,
+           "cli_seconds": cli_s}
+    rec["ok"] = (params_bitwise and adam_bitwise and k2_api == 10 and k3_api == 10 and lr_refused
+                 and rc == 0 and rec["cli_resumed"] and rec["cli_steps_printed"] == [2, 3]
+                 and cli_bitwise and cli_refused and k2_cli == 5 + 10 and k3_cli == 10
+                 and "step:cpu:torch.float32" in devices
+                 and "exp_avg:cuda:torch.float32" in devices)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the inverse resume: bits, launches or the fingerprint")
+    k2["launches_host_runtime"]["invert_resume"] = k2_api + k2_cli
+    k3["launches_host_runtime"]["invert_resume"] = k3_api + k3_cli
+
+    # ---- 20. scene_file ----
+    t_phase = time.perf_counter()
+    spath = os.path.join(work, "disco.json")
+    save_scene(spath, tp.get_scene("box_mirror", cfg.width, cfg.height))
+    zero()
+    rc, _, _ = run_cli(["render", "--scene-file", spath, *disco[2:], "-o", out_png])
+    k2_sf = counts()[0]
+    loaded = load_scene(spath, cfg.width, cfg.height).to(dev)
+    rec = {"phase": "scene_file",
+           "command": shown(["render", "--scene-file", spath, *disco[2:], "-o", out_png]),
+           "k2_launches": k2_sf,
+           "png_equal": open(out_png, "rb").read() == ref_bytes,
+           "bitwise": bool(torch.equal(tp.render_image(loaded, cfg), ref))}
+    rec["ok"] = rc == 0 and k2_sf == 1 and rec["png_equal"] and rec["bitwise"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the scene file does not render the registered scene")
+    k2["launches_host_runtime"]["scene_file"] = k2_sf
+
+    # ---- 21. debug_nans ----
+    t_phase = time.perf_counter()
+    zero()
+    rc, _, _ = run_cli(["render", *disco, "-o", out_png, "--debug-nans"])
+    k2_guarded = counts()[0]
+    png_equal = open(out_png, "rb").read() == ref_bytes
+    zero()
+    rc2, _, _ = run_cli([*iargv, "--steps", "1", "--debug-nans"])
+    k2_inv, k3_inv = counts()
+    nan_scene = tp.get_scene("box_mirror", cfg.width, cfg.height)
+    light = int(torch.nonzero(nan_scene.emission.sum(1) > 0)[0])
+    nan_scene.emission[light] = float("nan")
+    npath = os.path.join(work, "nan.json")
+    save_scene(npath, nan_scene)
+    zero()
+    try:
+        run_cli(["render", "--scene-file", npath, *disco[2:], "-o", out_png, "--debug-nans"])
+        caught = None
+    except FloatingPointError as err:
+        caught = str(err)
+    k2_nan = counts()[0]
+    rec = {"phase": "debug_nans", "k2_launches_guarded_render": k2_guarded,
+           "png_equal": png_equal, "k2_launches_guarded_step": k2_inv,
+           "k3_launches_guarded_step": k3_inv, "nan_light_sphere": light,
+           "floating_point_error": caught, "k2_launches_nan_render": k2_nan}
+    rec["ok"] = (rc == 0 and png_equal and k2_guarded == 1 and rc2 == 0 and k2_inv == 5 + 5
+                 and k3_inv == 5 and caught is not None and "render_cells_range" in caught
+                 and k2_nan == 1)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the NaN guard: a route left the card, or a NaN went through")
+    k2["launches_host_runtime"]["debug_nans"] = k2_guarded + k2_inv + k2_nan
+    k3["launches_host_runtime"]["debug_nans"] = k3_inv
+
+    # ---- 22. bench_suite ----
+    t_phase = time.perf_counter()
+    suite_md = os.path.join(work, "suite.md")
+    zero()
+    rc, out, _ = run_cli(["bench", "--suite", "--suite-scale", "1", "--suite-out", suite_md])
+    k2_suite, k3_suite = counts()
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    rows, inv_row = recs[:-1], recs[-1]
+    for r in rows:
+        emit({"phase": "bench_suite", "scene": r["scene"],
+              "resolution": f"{r['width']}x{r['height']}", "total_spp": r["total_spp"],
+              "route": r["route"], "k2_launches": r["k2_launches"], "seconds": r["seconds"],
+              "mrays_per_s": r["mrays_per_s"], "segments": r["segments"],
+              "avg_depth": r["avg_depth"], "occupancy": r.get("occupancy"),
+              "lane_efficiency": r["lane_efficiency"],
+              "depth_percentiles": r.get("depth_percentiles"), "device": r["device"]})
+    emit({"phase": "bench_suite", "inverse": inv_row})
+    # Each row's first and last launch again, outside the counted window, at
+    # the row's shapes: the head and the tail span of each against the plain
+    # version, bitwise.
+    span = 1 << 17
+    rows_ok = len(rows) == len(cli.BENCH_MATRIX)
+    for (name, w, h, tspp), r in zip(cli.BENCH_MATRIX, rows):
+        rcfg = tp.RenderConfig(width=w, height=h, spp=max(1, tspp // 4), max_depth=100)
+        rscene = tp.get_scene(name, w, h).to(dev)
+        table, cam = mk.pack_scene(rscene), mk.pack_camera(rscene)
+        n_cells = rcfg.num_cells
+        chunk = sample_chunk_for(rcfg.spp, n_cells)
+        n_items = chunk * n_cells
+        kw = dict(cfg=rcfg, n_cells=n_cells, ior=rscene.ior)
+        checked, bitwise, err, plain_ms = [], True, 0.0, 0.0
+        for s0 in sorted({0, rcfg.spp - chunk}):  # the first and the last launch
+            got = mk.persistent_render(table, cam, (0, s0), n_items=n_items, **kw)[0]
+            for i0 in (0, n_items - span):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                ref = plain_items(table, cam, (0, s0), i0, i0 + span, **kw)
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms += start.elapsed_time(end)
+                part = got[:, i0:i0 + span]
+                bitwise = bitwise and bool(torch.equal(part, ref))
+                err = max(err, float((part - ref).abs().max()))
+                checked.append([s0, i0])
+        first_ms, _ = cuda_time_ms(lambda: mk.persistent_render(table, cam, (0, 0),
+                                                                n_items=span, **kw))
+        first_plain_ms, _ = cuda_time_ms(lambda: plain_items(table, cam, (0, 0), 0, span, **kw),
+                                         runs=1)
+        row = {"phase": "bench_suite_vs_plain", "scene": name, "spheres": rscene.num_spheres,
+               "launch_items": n_items, "samples_a_launch": chunk,
+               "launches_expected": rcfg.spp // chunk, "k2_launches": r["k2_launches"],
+               "checked_sample_start_item": checked, "items_checked": span * len(checked),
+               "bitwise": bitwise, "max_abs_err": err, "plain_ms": plain_ms,
+               "kernel_ms_first_span": first_ms, "plain_ms_first_span": first_plain_ms,
+               "row_seconds": r["seconds"]}
+        row["ok"] = (bitwise and r["route"] == "pallas" and r["scene"] == name
+                     and r["k2_launches"] == rcfg.spp // chunk and r["mrays_per_s"] > 0)
+        emit(row)
+        rows_ok = rows_ok and row["ok"]
+        del got, ref, part
+    expected = [(n, s) for n, _, _, s in cli.BENCH_MATRIX]
+    rec = {"phase": "bench_suite_total", "rows": len(rows), "k2_launches": k2_suite,
+           "k3_launches": k3_suite, "rows_bitwise_vs_plain": rows_ok,
+           "table": open(suite_md).read()}
+    rec["ok"] = (rc == 0 and [(r["scene"], r["total_spp"]) for r in rows] == expected
+                 and rows_ok and inv_row["k2_launches_per_step"] == 5
+                 and len(inv_row["steps_per_s_windows"]) == 3
+                 and inv_row["k3_launches_per_step"] == 5 and inv_row["steps_per_s"] > 0
+                 and k2_suite > 0 and k3_suite > 0)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the benchmark suite: a row left the kernels, or failed")
+    k2["launches_host_runtime"]["bench_suite"] = k2_suite
+    k3["launches_host_runtime"]["bench_suite"] = k3_suite
+    tmp.cleanup()
+
+    # ---- 23. bench_headline ----
+    t_phase = time.perf_counter()
+    tb = load_script("torch_bench")
+    zero()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tb.main([])
+    k2_head = counts()[0]
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rec = {"phase": "bench_headline", "command": "python3 scripts/torch_bench.py", "line": line,
+           "k2_launches": k2_head}
+    rec["ok"] = rc == 0 and line["value"] > 0 and k2_head == 6
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the headline benchmark")
+    k2["launches_host_runtime"]["bench_headline"] = k2_head
 
 
 def main() -> int:
@@ -733,7 +1169,8 @@ def main() -> int:
     check(mk.persistent_render.launches == 0 and rk.replay_persistent.launches == 0,
           "cli bench launched another kernel than the per-step kernel")
     report = json.loads(buf.getvalue().strip().splitlines()[-1])
-    check(report["device"] == kind, "cli bench did not run on the card by default")
+    check(report["device"].startswith(kind + ", power limit"),
+          "cli bench did not run on the card by default")
     S = wavefront.STEPS_PER_LAUNCH
     check(k4_launches * S >= 4 * report["iters"] > 0,
           "cli bench did not launch the per-step kernel for every iteration")
@@ -1112,6 +1549,11 @@ def main() -> int:
         emit(rec)
         check(rec["ok"], f"the plain replay on the card ({name}, {dtype}, {jitter})")
     emit({"phase": "geometry_phases", "seconds": time.perf_counter() - t_geo})
+
+    # ---- 17-23. the host runtime and the benchmark suite ----
+    t_host = time.perf_counter()
+    host_runtime(dev, k2, k3)
+    emit({"phase": "host_runtime_phases", "seconds": time.perf_counter() - t_host})
 
     # Beside each render kernel's published-peak bound, its operations at
     # the rates the probe just measured.

@@ -10,8 +10,13 @@ centers and radii, albedo, emission, the camera and the background.  Its
 backward is the analytic replay for albedo, emission and background
 (``ops/replay.py``; on the card the CUDA kernel of
 ``ops/kernels/replay.py`` where it takes the scene), else autograd through
-the batch route's bounce loop (``ops/integrator.py``).  This package never
-imports JAX or the JAX package.
+the batch route's bounce loop (``ops/integrator.py``).  The single-process
+host runtime is ported too: tiled, retried and resumable renders
+(``orchestrator.py``), progressive and inverse-run checkpoints
+(``utils/checkpoint.py``), scene files (``models/io.py``), the NaN guard
+(``utils/debug.py``), the native image writers (``utils/native.py``) and the
+benchmark suite (``cli bench --suite``).  This package never imports JAX or
+the JAX package.
 """
 
 from .config import RenderConfig

@@ -30,6 +30,7 @@ whose eight fields are the leaves (the JAX pytree's), and its gradient is a
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Dict, Optional
 
@@ -42,6 +43,7 @@ from .models.scene import SPHERE_FIELDS, Scene
 from .ops.integrator import radiance
 from .ops.replay import replay_param_grads_auto
 from .render import camera_rays, render_cells_range
+from .utils import debug
 
 # Scene fields that may be optimized.
 OPTIMIZABLE = ("p0", "radius", "albedo", "emission", "camera", "background")
@@ -294,7 +296,8 @@ def make_accum_loss_grad(scene: Scene, cfg: RenderConfig, *, cell_chunk: Optiona
     (``camera``: a ``CameraConfig``), both summed over contiguous
     ``cell_chunk``-cell spans and divided by ``3 * num_cells`` once at the
     end (the chunk loop of the JAX package's ``make_accum_train_step``).
-    ``loss_grad.span.bwd_cfg`` is the scan VJP's config."""
+    ``loss_grad.span.bwd_cfg`` is the scan VJP's config.  Inside
+    ``utils/debug.debug_context`` both are checked for NaN."""
     n = cfg.num_cells
     cc = min(cell_chunk or n, n)
     render_mean = make_diff_render(scene, cfg, sample_chunk, compact=compact, replay=replay)
@@ -311,7 +314,9 @@ def make_accum_loss_grad(scene: Scene, cfg: RenderConfig, *, cell_chunk: Optiona
             sq_sum = sq.detach() if sq_sum is None else sq_sum + sq.detach()
             grads = g if grads is None else tuple(a + b for a, b in zip(grads, g))
         denom = 3 * n
-        return sq_sum / denom, unflatten_params(names, [g / denom for g in grads])
+        loss, grads = sq_sum / denom, unflatten_params(names, [g / denom for g in grads])
+        debug.guard({"loss": loss, "grads": grads}, "inverse step")
+        return loss, grads
 
     loss_grad.span = render_mean.span
     return loss_grad
@@ -333,19 +338,32 @@ def make_accum_train_step(scene: Scene, cfg: RenderConfig, lr: float, *,
     eight fields each): its first call takes the params to optimize, later
     calls continue from the params they are given.  With ``compact``,
     ``step.drop_check(params)`` is the JAX monitor (``backward_drop_count``)
-    of the last step's backward; ``step.span.bwd_cfg`` the scan VJP's config."""
+    of the last step's backward; ``step.span.bwd_cfg`` the scan VJP's config.
+
+    ``step.state_dict()`` is ``{"params": ..., "optimizer": ...}``: copies of
+    the params and of Adam's ``state_dict()``, whose per-leaf ``step``
+    counter and moments stay where Adam keeps them (the counter a float32
+    CPU tensor, the moments on the params' device).  ``step.load_state_dict``
+    takes such a dict, also in a step function that has not run yet, and
+    hands it to ``Adam.load_state_dict``, which casts nothing that was saved
+    in the params' dtype; the ``param_groups`` may be left out (the step's
+    own are used).  Continuing from a loaded state repeats the
+    uninterrupted steps bitwise (``utils/checkpoint.InvertState``)."""
     n = cfg.num_cells
     cc = min(cell_chunk or n, n)
     loss_grad = make_accum_loss_grad(scene, cfg, cell_chunk=cell_chunk,
                                      sample_chunk=sample_chunk, compact=compact, replay=replay)
     state = {}
 
+    def init(names, values):
+        state["names"] = names
+        state["leaves"] = [v.detach().clone().requires_grad_(True) for v in values]
+        state["opt"] = torch.optim.Adam(state["leaves"], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
     def step(params, targets):
         names, values = flatten_params(params)
         if not state:
-            state["names"] = names
-            state["leaves"] = [v.detach().clone().requires_grad_(True) for v in values]
-            state["opt"] = torch.optim.Adam(state["leaves"], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+            init(names, values)
         leaves, opt = state["leaves"], state["opt"]
         if names != state["names"]:
             raise ValueError(f"step was built for {state['names']}, got {names}")
@@ -359,7 +377,22 @@ def make_accum_train_step(scene: Scene, cfg: RenderConfig, lr: float, *,
         opt.step()
         return unflatten_params(names, [v.detach().clone() for v in leaves]), loss
 
+    def state_dict():
+        if not state:
+            raise RuntimeError("the step has no state before its first call or a load")
+        sd = copy.deepcopy(state["opt"].state_dict())
+        return {"params": unflatten_params(state["names"],
+                                           [v.detach().clone() for v in state["leaves"]]),
+                "optimizer": sd}
+
+    def load_state_dict(sd):
+        init(*flatten_params(sd["params"]))
+        opt_sd = dict(sd["optimizer"])
+        opt_sd.setdefault("param_groups", state["opt"].state_dict()["param_groups"])
+        state["opt"].load_state_dict(opt_sd)
+
     step.span = loss_grad.span
+    step.state_dict, step.load_state_dict = state_dict, load_state_dict
     if compact:
         def drop_check(params=None):
             # Nothing was compacted before a first step, nor by a replay step.

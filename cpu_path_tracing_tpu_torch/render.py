@@ -27,6 +27,7 @@ from .ops.wavefront import (
     render_wavefront_per_step,
     render_wavefront_persistent,
 )
+from .utils import debug
 
 
 def decode_cells(cell_ids, cfg: RenderConfig):
@@ -151,18 +152,23 @@ def render_cells_range(scene, cfg: RenderConfig, cell_ids, sample_start: int,
     span); 'wavefront' -> ``render_wavefront``; 'pallas' -> the
     whole-render kernel, or with ``cfg.pallas_persistent=False`` the
     per-step kernel; 'plain' -> the whole-render kernel's wrapper, which
-    runs its plain version for a scene on the CPU."""
+    runs its plain version for a scene on the CPU.  Inside
+    ``utils/debug.debug_context`` the sums are checked for NaN
+    (``FloatingPointError``)."""
     integ = resolve_integrator(scene, cfg)
+    args = (scene, cfg, cell_ids, sample_start, num_samples)
     if integ == "batch":
         if with_stats:
             raise ValueError("the batch route keeps no launch stats")
-        return render_batch(scene, cfg, cell_ids, sample_start, num_samples)
-    args = (scene, cfg, cell_ids, sample_start, num_samples)
-    if integ == "wavefront":
-        return render_wavefront(*args, with_stats=with_stats)
-    if integ == "pallas" and not cfg.pallas_persistent:
-        return render_wavefront_per_step(*args, with_stats=with_stats)
-    return render_wavefront_persistent(*args, with_stats=with_stats)
+        out = render_batch(*args)
+    elif integ == "wavefront":
+        out = render_wavefront(*args, with_stats=with_stats)
+    elif integ == "pallas" and not cfg.pallas_persistent:
+        out = render_wavefront_per_step(*args, with_stats=with_stats)
+    else:
+        out = render_wavefront_persistent(*args, with_stats=with_stats)
+    debug.guard(out[0] if with_stats else out, "render_cells_range")
+    return out
 
 
 def render_cells(scene, cfg: RenderConfig, cell_ids) -> torch.Tensor:

@@ -1,16 +1,21 @@
-"""The render report of ``cli bench``.
+"""Metrics, logging and the render report.
 
-Counterpart of ``RenderReport`` in ``cpu_path_tracing_tpu/utils/metrics.py``
-(the same fields, properties and JSON line), plus ``device``: the card's
+Counterpart of ``cpu_path_tracing_tpu/utils/metrics.py``: ``RenderReport``
+(the same fields, properties and JSON line, plus ``device``: the card's
 name or "cpu", so that a time is never read without the device it was
-taken on.  The JAX module's progress logger, metrics sink and timer are not
-ported: no ported command uses them.
+taken on), ``ProgressLogger`` (the reference's stderr progress line,
+``src/main.cpp:219-220``), ``MetricsSink`` (structured records, echoed as
+JSON lines) and ``Timer`` (host clock; on the card, time what ends in a
+synchronize).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import subprocess
+import sys
+import time
 from typing import List, Optional
 
 
@@ -83,3 +88,66 @@ class RenderReport:
         if pct:
             s += " (path-length " + " ".join(f"{k}={v}" for k, v in pct.items()) + ")"
         return s
+
+
+def device_label(device) -> str:
+    """The device a number was taken on: for a CUDA device the card's name
+    and its power limit as ``nvidia-smi`` reads it (a card below its
+    maximum runs slower under load), else the device's own name."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return str(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        limit = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               timeout=30, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        limit = "not read"
+    return f"{torch.cuda.get_device_name(index)}, power limit {limit}"
+
+
+class ProgressLogger:
+    """The reference's '\\rRendering (N spp) xx.xx%' stderr line
+    (``src/main.cpp:219-220``), one update per batch or tile."""
+
+    def __init__(self, total_spp: int, stream=None):
+        self.total_spp = total_spp
+        self.stream = stream if stream is not None else sys.stderr
+        self.t0 = time.perf_counter()
+
+    def __call__(self, done: int, total: int) -> None:
+        pct = 100.0 * done / total
+        dt = time.perf_counter() - self.t0
+        print(f"\rRendering ({self.total_spp} spp) {pct:5.1f}%  [{dt:.1f}s]", end="",
+              file=self.stream, flush=True)
+        if done >= total:
+            print(file=self.stream)
+
+
+class MetricsSink:
+    """Collects metric records; optionally mirrors each to stdout as a JSON line."""
+
+    def __init__(self, echo: bool = False):
+        self.records: List[dict] = []
+        self.echo = echo
+
+    def log(self, **kv) -> None:
+        kv.setdefault("t", time.time())
+        self.records.append(kv)
+        if self.echo:
+            print(json.dumps(kv), flush=True)
+
+
+class Timer:
+    """Host-clock seconds of a ``with`` block (``.seconds``)."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        return False

@@ -12,7 +12,16 @@
   ``--total-spp`` divides by the chosen ``subpixels**2``; a float64 render
   at ``--subpixels 1 --rr-depth 2`` agrees with the JAX package's to
   float64 rounding (scale-aware deviation < 1e-9).
+* The host runtime's flags, as ``tests/test_cli.py`` drives the JAX ones:
+  ``--checkpoint``/``--flush-every`` (progressive), ``--tile-cells`` with
+  ``--inject-fault`` and ``--max-retries`` (a tiled image is the one-pass
+  image byte for byte, and a failed run resumes to it), ``invert
+  --checkpoint`` (a resumed run ends where the uninterrupted one does,
+  bitwise), ``--debug-nans``, and ``bench --suite`` on a shrunk matrix.
+  The flags of ``parallel/`` fail naming their ROADMAP item.
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -139,3 +148,116 @@ def test_render_at_one_subpixel_and_early_roulette_matches_jax(tmp_path):
     out = tmp_path / "one.png"
     assert cli.main([*argv, "--device", "cpu", "-o", str(out)]) == 0
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+SMALL = ["--width", "24", "--height", "16", "--spp", "1", "--max-depth", "8", "--device", "cpu"]
+
+
+def test_render_checkpointed(tmp_path):
+    out = str(tmp_path / "img.png")
+    ck = str(tmp_path / "ck.npz")
+    rc = cli.main(["render", "--scene", "box", *SMALL, "-o", out, "--checkpoint", ck,
+                   "--flush-every", "1"])
+    assert rc == 0
+    z = np.load(ck)
+    assert int(z["spp_done"]) == 1
+
+
+def test_render_tiled_with_faults_and_resume(tmp_path):
+    """--tile-cells with injected faults writes the one-pass image; past
+    --max-retries the run fails with TileRenderError, and the same command
+    without the fault resumes from --checkpoint to the same image."""
+    from cpu_path_tracing_tpu_torch.orchestrator import TileRenderError, TileState
+
+    args = ["render", "--scene", "box", *SMALL]
+    one, tiled, resumed = (str(tmp_path / n) for n in ("one.png", "tiled.png", "resumed.png"))
+    assert cli.main([*args, "-o", one]) == 0
+    assert cli.main([*args, "-o", tiled, "--tile-cells", "256", "--inject-fault", "1:2,4"]) == 0
+    ck = str(tmp_path / "tiles.npz")
+    with pytest.raises(TileRenderError):
+        cli.main([*args, "-o", resumed, "--tile-cells", "256", "--checkpoint", ck,
+                  "--inject-fault", "3:3", "--max-retries", "2"])
+    assert TileState.load(ck).done.tolist() == [True] * 3 + [False] * 3
+    assert cli.main([*args, "-o", resumed, "--tile-cells", "256", "--checkpoint", ck]) == 0
+    assert TileState.load(ck).done.all()
+    ref = open(one, "rb").read()
+    assert open(tiled, "rb").read() == ref and open(resumed, "rb").read() == ref
+
+
+def test_invert_resumes_from_checkpoint(tmp_path, capsys):
+    """cli invert --checkpoint: 2 steps, then the same command to 4 steps
+    resumes at step 2 and ends where 4 uninterrupted steps end, bitwise; a
+    changed --lr refuses the checkpoint."""
+    args = ["invert", "--scene", "box", "--width", "8", "--height", "6", "--spp", "1",
+            "--max-depth", "6", "--fields", "albedo,emission", "--device", "cpu",
+            "--cell-chunk", "96"]
+    a, b = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    assert cli.main([*args, "--steps", "4", "--checkpoint", a]) == 0
+    assert cli.main([*args, "--steps", "2", "--checkpoint", b]) == 0
+    capsys.readouterr()
+    assert cli.main([*args, "--steps", "4", "--checkpoint", b, "--save-every", "1"]) == 0
+    captured = capsys.readouterr()
+    assert f"resumed from {b} at step 2" in captured.err
+    steps = [json.loads(ln)["step"] for ln in captured.out.splitlines() if ln.startswith("{")]
+    assert steps == [2, 3]
+    za, zb = np.load(a), np.load(b)
+    assert sorted(za.files) == sorted(zb.files) and int(zb["step"]) == 4
+    for k in za.files:
+        np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+    with pytest.raises(ValueError, match="different"):
+        cli.main([*args, "--steps", "5", "--checkpoint", b, "--lr", "5e-3"])
+
+
+def test_debug_nans_flag(tmp_path):
+    """--debug-nans passes a clean render, and names the output of a scene
+    file whose light is NaN (which renders without the flag)."""
+    from cpu_path_tracing_tpu_torch.models.io import save_scene
+
+    out = str(tmp_path / "img.png")
+    assert cli.main(["render", "--scene", "box", *SMALL, "-o", out, "--debug-nans"]) == 0
+    scene = tp.get_scene("box", 24, 16)
+    scene.emission[7] = float("nan")
+    spath = str(tmp_path / "nan.json")
+    save_scene(spath, scene)
+    assert cli.main(["render", "--scene-file", spath, *SMALL, "-o", out]) == 0
+    with pytest.raises(FloatingPointError, match="render_cells_range"):
+        cli.main(["render", "--scene-file", spath, *SMALL, "-o", out, "--debug-nans"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["render", "--mesh", "2x1"], ["render", "--num-processes", "2"],
+    ["invert", "--coordinator", "localhost:1234"], ["bench", "--shard-dir", "x"],
+    ["bench", "--scaling"], ["bench", "--ring", "8"],
+])
+def test_unported_flags_name_their_roadmap_item(argv):
+    with pytest.raises(SystemExit, match="not ported"):
+        cli.main([*argv, "--device", "cpu"])
+
+
+def test_bench_suite(tmp_path, capsys, monkeypatch):
+    """bench --suite on a shrunk matrix: one JSON record a row and one for
+    the inverse step, and the markdown table with a row per scene."""
+    import time
+
+    monkeypatch.setattr(cli, "BENCH_MATRIX", (("simple", 16, 12, 16), ("box", 16, 12, 8),
+                                              ("random_spheres_512", 16, 12, 4)))
+    out = str(tmp_path / "suite.md")
+    t0 = time.perf_counter()
+    assert cli.main(["bench", "--suite", "--suite-scale", "2", "--repeats", "2", "--suite-out",
+                     out, "--device", "cpu"]) == 0
+    assert time.perf_counter() - t0 < 30
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    rows, inv = recs[:3], recs[3]
+    assert [r["scene"] for r in rows] == ["simple", "box", "random_spheres_512"]
+    assert [r["total_spp"] for r in rows] == [8, 4, 4]  # spp / --suite-scale, at least 4
+    for r in rows:
+        assert r["segments"] > 0 and r["mrays_per_s"] > 0 and r["route"] == "plain"
+        assert sum(r["depth_hist"]) == r["camera_rays"] // r["total_spp"] * 4
+        assert r["k2_launches"] == 0 and r["device"] == "cpu"
+        assert set(r["depth_percentiles"]) == {"p50", "p90", "p99"}
+    assert inv["steps_per_s"] > 0 and inv["loss_end"] < inv["loss_start"]
+    assert len(inv["steps_per_s_windows"]) == 2 and inv["steps_per_s"] == max(
+        inv["steps_per_s_windows"])
+    text = open(out).read()
+    table = [ln for ln in text.splitlines() if ln.startswith("| ")]
+    assert text.startswith("# Benchmark suite — cpu") and len(table) == 1 + 3

@@ -459,3 +459,94 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pk.stream_scale(xs[:, ::2])
     with pytest.raises(ValueError, match="aligned"):
         pk.stream_scale(torch.ones(65, device=cuda)[1:])
+
+
+def test_tiled_render_is_the_one_pass_image_on_the_card(cuda, tmp_path):
+    """Every tile one launch of the whole-render kernel, a retried tile the
+    same bits, the image the one-pass render's bitwise; a resumed run
+    launches only the missing tiles."""
+    from cpu_path_tracing_tpu_torch.orchestrator import (
+        FaultInjector, TileRenderError, render_tiled, tile_spans)
+
+    cfg = tp.RenderConfig(width=64, height=48, spp=2, max_depth=100)
+    scene = tp.get_scene("box_mirror", 64, 48).to(cuda)
+    ref = tp.render_image(scene, cfg)
+    n_tiles = len(tile_spans(cfg, 3000)[0])
+    before = mk.persistent_render.launches
+    img = render_tiled(scene, cfg, tile_cells=3000, fault_injector=FaultInjector({1: 2}))
+    assert mk.persistent_render.launches - before == n_tiles
+    assert img.device.type == "cuda" and torch.equal(img, ref)
+    ck = str(tmp_path / "tiles.npz")
+    with pytest.raises(TileRenderError):
+        render_tiled(scene, cfg, tile_cells=3000, checkpoint_path=ck, max_retries=0,
+                     fault_injector=FaultInjector({2: 1}))
+    before = mk.persistent_render.launches
+    assert torch.equal(render_tiled(scene, cfg, tile_cells=3000, checkpoint_path=ck), ref)
+    assert mk.persistent_render.launches - before == n_tiles - 2
+
+
+def test_progressive_resume_is_bitwise_on_the_card(cuda, tmp_path):
+    from cpu_path_tracing_tpu_torch.utils.checkpoint import render_progressive
+
+    cfg = tp.RenderConfig(width=64, height=48, spp=4, max_depth=100)
+    scene = tp.get_scene("box_mirror", 64, 48).to(cuda)
+    ck = str(tmp_path / "ck.npz")
+    render_progressive(scene, cfg.replace(spp=2), ck, flush_every=1)
+    before = mk.persistent_render.launches
+    resumed = render_progressive(scene, cfg, ck, flush_every=1)
+    assert mk.persistent_render.launches - before == 2
+    assert torch.equal(resumed, render_progressive(scene, cfg, flush_every=1))
+    torch.testing.assert_close(resumed, tp.render_image(scene, cfg), rtol=1e-6, atol=1e-6)
+
+
+def test_invert_resume_is_bitwise_on_the_card(cuda):
+    """Adam's counter stays on the host and its moments on the card across
+    a save and load, and the resumed steps repeat the straight ones."""
+    from cpu_path_tracing_tpu_torch import grad
+
+    cfg = tp.RenderConfig(width=64, height=48, spp=2, max_depth=100)
+    scene = tp.get_scene("box", 64, 48).to(cuda)
+    target = grad.render_target(scene, cfg)
+    p0 = {k: v + 0.02 for k, v in grad.split_params(scene, ("albedo", "emission")).items()}
+    straight = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=4096)
+    p = p0
+    for _ in range(4):
+        p, _ = straight(p, target)
+    first = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=4096)
+    q = p0
+    for _ in range(2):
+        q, _ = first(q, target)
+    sd = first.state_dict()
+    resumed = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=4096)
+    resumed.load_state_dict(sd)
+    before = rk.replay_persistent.launches
+    for _ in range(2):
+        q, _ = resumed(q, target)
+    assert rk.replay_persistent.launches - before == 2 * -(-cfg.num_cells // 4096)
+    for k in p:
+        assert torch.equal(p[k], q[k]), k
+    a, b = straight.state_dict()["optimizer"]["state"], resumed.state_dict()["optimizer"]["state"]
+    for i in a:
+        assert b[i]["step"].device.type == "cpu" and b[i]["exp_avg"].device.type == "cuda"
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(a[i][key], b[i][key]), (i, key)
+
+
+def test_nan_guard_keeps_the_kernels_on_the_card(cuda):
+    from cpu_path_tracing_tpu_torch import grad, render
+    from cpu_path_tracing_tpu_torch.utils.debug import debug_context
+
+    cfg = tp.RenderConfig(width=64, height=48, spp=2, max_depth=100)
+    scene = tp.get_scene("box", 64, 48).to(cuda)
+    ids = torch.arange(cfg.num_cells, device=cuda)
+    k2, k3 = mk.persistent_render.launches, rk.replay_persistent.launches
+    with debug_context(nans=True):
+        render.render_cells_range(scene, cfg, ids, 0, 2)
+        step = grad.make_accum_train_step(scene, cfg, 1e-2)
+        p = {k: v + 0.02 for k, v in grad.split_params(scene, ("albedo", "emission")).items()}
+        step(p, grad.render_target(scene, cfg))
+    assert mk.persistent_render.launches > k2 and rk.replay_persistent.launches > k3
+    scene.emission[7] = float("nan")
+    with pytest.raises(FloatingPointError):
+        with debug_context(nans=True):
+            render.render_cells_range(scene, cfg, ids, 0, 2)

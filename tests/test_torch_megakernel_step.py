@@ -260,7 +260,9 @@ def test_cli_bench_prints_one_report(capsys):
     assert rep["camera_rays"] == 8 * 6 * 4
 
 
-@pytest.mark.parametrize("flag", [["--suite"], ["--scaling"], ["--ring", "8"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--scaling"], ["--ring", "8"]])
 def test_cli_bench_unported_options_raise(flag):
-    with pytest.raises(SystemExit, match="not ported.*Queue 1: the benchmark suite; parallel/"):
+    # --suite is ported (tests/test_torch_cli.py::test_bench_suite); what
+    # parallel/ serves still fails naming its ROADMAP item.
+    with pytest.raises(SystemExit, match="not ported.*Queue 1: parallel/"):
         cli.main(["bench", "--width", "8", "--height", "6", "--device", "cpu", *flag])
