@@ -154,12 +154,39 @@ script exits non-zero.
    those items and the kernel's time on a launch of the first 131,072.
    bench_headline: ``scripts/torch_bench.py``'s JSON line.
 
+24-28. The mesh and multi-process paths on the one card, each record with
+   nvidia-smi's name and power limit, the kernels' launch counts set to 0
+   just before each path and read just after (``parallel_phases``: their
+   seconds).  sharded_render: disco 1024x768, 32 total spp, max_depth 100
+   on ``make_mesh(4, 1, [cuda:0] * 4)`` and ``make_mesh(2, 2, ...)``: 4
+   forward launches a render, the 4x1 image bitwise equal to
+   ``render_image``'s, the 2x2 within 1e-6 * max(1, |ref|) with its max
+   |delta|, each timed with CUDA events (1 warm-up, median of 3) beside the
+   one pass.  multiprocess_render: ``cli render --num-processes 2
+   --coordinator 127.0.0.1:<free port> --process-id {0,1}``, both ranks on
+   cuda:0, the same disco, three runs (replicated; ``--shard-dir``;
+   ``--shard-dir --inject-shard-loss 1 --shard-timeout 3``): each PNG byte
+   for byte the one-process ``cli render`` PNG, the return codes (rank 1
+   exits 3 in the loss run), the shard directory (``LOST_HOSTS`` and
+   ``shard_00000.npz`` alone after the loss), each run's wall seconds and
+   each rank's forward launches.  sharded_train_path: the production
+   inverse step through ``make_sharded_accum_train_step`` on a 2x2 mesh of
+   cuda:0: 20 forward and 20 replay launches a step; the first step's loss
+   within 1e-5 relative and each gradient within 1e-5 of its largest
+   magnitude against the one-device step on the card; steps/s of 3
+   CUDA-event-timed steps after a warm-up beside the one-device step's;
+   ``cli invert --mesh 2x2 --steps 2`` (5 + 40 forward, 40 replay
+   launches).  entry_twin: ``entry()`` once (1 forward launch) and
+   ``dryrun_multichip(4)`` on ``[cuda:0] * 4`` (12 forward launches, no
+   replay).  bench_scaling: ``cli bench --scaling`` on disco, one row.
+
 Then a ``{"kernels": [...]}`` line (five kernels, each with its launches on
 its path, its time, its plain version's, its bound, the least time the card
 could take for the same work at its published peaks, which side binds, the
 probe-model time of the render kernels, and a library call's time where one
 PyTorch call computes the same; the whole-render kernel also its launches on
-the geometry path and on each host-runtime path; the whole-render and replay kernels also
+the geometry path, on each host-runtime path and on each mesh or multi-process path
+(``launches_parallel``); the whole-render and replay kernels also
 with their registers, the threads resident an SM and the launch's occupancy;
 the per-step kernel's bound is the
 render's, equal to the whole-render kernel's, with the floor of the
@@ -672,6 +699,269 @@ def host_runtime(dev, k2: dict, k3: dict) -> None:
     emit(rec)
     check(rec["ok"], "the headline benchmark")
     k2["launches_host_runtime"]["bench_headline"] = k2_head
+
+
+# A rank of the multi-process render: ``cli.main`` with its forward-kernel
+# launches printed as a JSON line when it returns or leaves by os._exit (a
+# lost rank, or a survivor of one).
+RANK_WRAPPER = """
+import json, os, sys
+from cpu_path_tracing_tpu_torch import cli
+from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+_exit = os._exit
+def report(code):
+    print(json.dumps({"rc": code, "k2_launches": mk.persistent_render.launches}), flush=True)
+def leave(code):
+    report(code)
+    _exit(code)
+os._exit = leave
+rc = cli.main(sys.argv[1:])
+report(rc)
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
+    """Phases 24-28: the mesh and multi-process paths (``parallel/``,
+    ``grad.make_sharded_*``, ``entry.py``) on the one card, each with the
+    kernels' launch counts set to 0 just before it is driven and read just
+    after.  One card shows the plumbing, not scaling: a mesh's entries are
+    the same card, and two ranks share it."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cpu_path_tracing_tpu_torch as tp
+    from cpu_path_tracing_tpu_torch import cli, grad
+    from cpu_path_tracing_tpu_torch.entry import dryrun_multichip, entry
+    from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+    from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+    from cpu_path_tracing_tpu_torch.parallel.render import render_image_sharded
+
+    def zero():
+        mk.persistent_render.launches = rk.replay_persistent.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return mk.persistent_render.launches, rk.replay_persistent.launches
+
+    def run_cli(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    k2["launches_parallel"], k3["launches_parallel"] = {}, {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    disco = ["--scene", "box_mirror", "--width", "1024", "--height", "768", "--total-spp", "32",
+             "--max-depth", "100"]
+    cfg = tp.RenderConfig(width=1024, height=768, spp=8, max_depth=100)
+    scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
+    cards = [dev] * 4
+
+    # ---- 24. sharded_render ----
+    t_phase = time.perf_counter()
+    ref = tp.render_image(scene, cfg)
+    one_ms, _ = cuda_time_ms(lambda: tp.render_image(scene, cfg))
+    rec = {"phase": "sharded_render", "nvidia_smi": smi,
+           "config": "box_mirror 1024x768, 32 total spp, max_depth 100; meshes of cuda:0 x 4",
+           "one_pass_ms": one_ms}
+    ok = True
+    for shape in ((4, 1), (2, 2)):
+        mesh = make_mesh(*shape, cards)
+        zero()
+        img = render_image_sharded(scene, cfg, mesh)
+        launches = counts()[0]
+        ms, _ = cuda_time_ms(lambda: render_image_sharded(scene, cfg, mesh))
+        lim = 1e-6 * torch.clamp(ref.abs(), min=1.0)
+        delta = (img - ref).abs()
+        tag = f"{shape[0]}x{shape[1]}"
+        rec[tag] = {"k2_launches": launches, "ms": ms, "bitwise": bool(torch.equal(img, ref)),
+                    "max_abs_delta": float(delta.max()),
+                    "within_1e-6": bool((delta <= lim).all())}
+        ok = ok and launches == 4 and rec[tag]["within_1e-6"]
+        k2["launches_parallel"][f"sharded_render_{tag}"] = launches
+    rec["ok"] = ok and rec["4x1"]["bitwise"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the sharded render: launches, bits or the 1e-6 limit")
+
+    # ---- 25. multiprocess_render ----
+    t_phase = time.perf_counter()
+    one_png = os.path.join(work, "one.png")
+    rc, _, _ = run_cli(["render", *disco, "-o", one_png])
+    check(rc == 0, "the one-process cli render failed")
+    one_bytes = open(one_png, "rb").read()
+    env = dict(os.environ, PYTHONPATH=HERE)
+    runs = {}
+    for name, extra, want_rc in (
+            ("replicated", [], {0: 0, 1: 0}),
+            ("shard_dir", ["--shard-dir", os.path.join(work, "shards")], {0: 0, 1: 0}),
+            ("shard_loss", ["--shard-dir", os.path.join(work, "lost"), "--inject-shard-loss", "1",
+                            "--shard-timeout", "3"], {0: 0, 1: 3})):
+        png = os.path.join(work, f"{name}.png")
+        port = free_port()
+        argv = ["render", *disco, "--num-processes", "2", "--coordinator", f"127.0.0.1:{port}",
+                "-o", png, *extra]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", RANK_WRAPPER, *argv, "--process-id",
+                                   str(r)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+        outs = {}
+        try:
+            for r, proc in enumerate(procs):
+                out, err = proc.communicate(timeout=300)
+                lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+                outs[r] = {"rc": proc.returncode,
+                           "k2_launches": lines[-1]["k2_launches"] if lines else None,
+                           "stderr_tail": err.strip().splitlines()[-2:]}
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        run = {"command": "python -m cpu_path_tracing_tpu_torch.cli " + " ".join(
+                   a.replace(work + os.sep, "") for a in argv) + " --process-id {0,1}",
+               "wall_seconds": time.perf_counter() - t0, "ranks": outs,
+               "png_equal": os.path.exists(png) and open(png, "rb").read() == one_bytes}
+        run["ok"] = run["png_equal"] and {r: o["rc"] for r, o in outs.items()} == want_rc
+        if "--shard-dir" in extra:
+            run["shard_dir"] = sorted(os.listdir(extra[1]))
+            want = (["LOST_HOSTS", "shard_00000.npz"] if name == "shard_loss"
+                    else ["shard_00000.npz", "shard_00001.npz"])
+            run["ok"] = run["ok"] and run["shard_dir"] == want
+        runs[name] = run
+    want_k2 = {"replicated": {0: 1, 1: 1}, "shard_dir": {0: 1, 1: 1},
+               "shard_loss": {0: 2, 1: 1}}  # rank 0 re-renders the lost rank's cells
+    rec = {"phase": "multiprocess_render", "nvidia_smi": smi,
+           "config": "box_mirror 1024x768, 32 total spp, max_depth 100; 2 ranks on cuda:0, gloo",
+           "runs": runs}
+    rec["ok"] = all(r["ok"] for r in runs.values()) and all(
+        {k: o["k2_launches"] for k, o in runs[n]["ranks"].items()} == want_k2[n] for n in runs)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the multi-process render: return codes, PNG bytes, shards or launches")
+    k2["launches_parallel"]["multiprocess_render"] = sum(
+        o["k2_launches"] for r in runs.values() for o in r["ranks"].values())
+
+    # ---- 26. sharded_train_path ----
+    t_phase = time.perf_counter()
+    icfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    box = tp.get_scene("box", icfg.width, icfg.height).to(dev)
+    chunk = 1 << 17
+    target = grad.render_target(box, icfg, chunk)
+    p0 = {k: v + 0.02 for k, v in grad.split_params(box, ("albedo", "emission")).items()}
+    mesh = make_mesh(2, 2, cards)
+    l1, g1 = grad.make_accum_loss_grad(box, icfg, cell_chunk=chunk, sample_chunk=1)(p0, target)
+    zero()
+    l2, g2 = grad.make_sharded_accum_loss_grad(mesh, box, icfg, cell_chunk=chunk,
+                                               sample_chunk=1)(p0, target)
+    k2_step, k3_step = counts()
+    loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
+    grad_dev = {k: float((g2[k] - g1[k]).abs().max()) / float(g1[k].abs().max()) for k in g1}
+
+    def steps_per_s(step):
+        p, _ = step(p0, target)  # warm-up
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p, loss = step(p, target)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return [1e3 / t for t in times], float(loss)
+
+    single_sps, single_loss = steps_per_s(grad.make_accum_train_step(box, icfg, 1e-2,
+                                                                     cell_chunk=chunk))
+    zero()
+    sharded_sps, sharded_loss = steps_per_s(grad.make_sharded_accum_train_step(
+        mesh, box, icfg, 1e-2, cell_chunk=chunk))
+    k2_timed, k3_timed = counts()
+    iargv = ["invert", "--scene", "box", "--width", "400", "--height", "400", "--total-spp", "64",
+             "--max-depth", "100", "--mesh", "2x2", "--steps", "2"]
+    zero()
+    t0 = time.perf_counter()
+    rc, out, _ = run_cli(iargv)
+    cli_s = time.perf_counter() - t0
+    k2_cli, k3_cli = counts()
+    cli_lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    rec = {"phase": "sharded_train_path", "nvidia_smi": smi,
+           "config": "box 400x400, 64 total spp, max_depth 100, albedo+emission, 131,072-cell "
+                     "chunks, mesh 2x2 of cuda:0",
+           "k2_launches_per_step": k2_step, "k3_launches_per_step": k3_step,
+           "loss_single": float(l1), "loss_sharded": float(l2), "loss_rel_dev": loss_rel,
+           "grad_dev_over_max": grad_dev,
+           "steps_per_s_single": single_sps, "steps_per_s_sharded": sharded_sps,
+           "loss_after_4_steps_single": single_loss, "loss_after_4_steps_sharded": sharded_loss,
+           "k2_launches_4_steps": k2_timed, "k3_launches_4_steps": k3_timed,
+           "cli": {"command": "python -m cpu_path_tracing_tpu_torch.cli " + " ".join(iargv),
+                   "rc": rc, "seconds": cli_s, "losses": [r["loss"] for r in cli_lines],
+                   "k2_launches": k2_cli, "k3_launches": k3_cli}}
+    rec["ok"] = (k2_step == 20 and k3_step == 20 and loss_rel <= 1e-5
+                 and all(v <= 1e-5 for v in grad_dev.values())
+                 and k2_timed == 80 and k3_timed == 80 and rc == 0 and len(cli_lines) == 2
+                 and all(np.isfinite(r["loss"]) for r in cli_lines)
+                 and k2_cli == 5 + 40 and k3_cli == 40)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "the sharded inverse step: launches, loss or gradients against one device")
+    k2["launches_parallel"]["sharded_train_path"] = k2_step + k2_timed + k2_cli
+    k3["launches_parallel"]["sharded_train_path"] = k3_step + k3_timed + k3_cli
+
+    # ---- 27. entry_twin ----
+    t_phase = time.perf_counter()
+    zero()
+    fn, args = entry()
+    out = fn(*args)
+    k2_entry = counts()[0]
+    zero()
+    dry = dryrun_multichip(4, cards)
+    k2_dry, k3_dry = counts()
+    rec = {"phase": "entry_twin", "nvidia_smi": smi, "entry_shape": list(out.shape),
+           "entry_device": str(out.device), "entry_mean": float(out.mean()),
+           "k2_launches_entry": k2_entry, "dryrun_multichip_4": dry,
+           "k2_launches_dryrun": k2_dry, "k3_launches_dryrun": k3_dry}
+    # The dryrun's forward kernel: the accumulation step's 2 chunks x 4
+    # shards and the kernel route's 4 shards; its backward is the scan VJP.
+    rec["ok"] = (tuple(out.shape) == (256 * 192 * 4, 3) and out.device.type == "cuda"
+                 and bool(torch.isfinite(out).all()) and k2_entry == 1
+                 and dry["mesh"] == {"tiles": 2, "samples": 2} and k2_dry == 12 and k3_dry == 0)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "entry() or dryrun_multichip(4) on the card")
+    k2["launches_parallel"]["entry_twin"] = k2_entry + k2_dry
+
+    # ---- 28. bench_scaling ----
+    t_phase = time.perf_counter()
+    table = os.path.join(work, "scaling.md")
+    zero()
+    rc, out, _ = run_cli(["bench", "--scaling", *disco, "--suite-out", table])
+    k2_scaling = counts()[0]
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    rec = {"phase": "bench_scaling", "nvidia_smi": smi, "rows": rows, "k2_launches": k2_scaling,
+           "table": open(table).read()}
+    rec["ok"] = (rc == 0 and [r["devices"] for r in rows] == [1] and k2_scaling == 4
+                 and rows[0]["seconds"] > 0 and rec["table"].startswith("# Strong scaling"))
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    check(rec["ok"], "bench --scaling")
+    k2["launches_parallel"]["bench_scaling"] = k2_scaling
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -1554,6 +1844,11 @@ def main() -> int:
     t_host = time.perf_counter()
     host_runtime(dev, k2, k3)
     emit({"phase": "host_runtime_phases", "seconds": time.perf_counter() - t_host})
+
+    # ---- 24-28. the mesh and multi-process paths ----
+    t_par = time.perf_counter()
+    parallel_paths(dev, k2, k3, smi)
+    emit({"phase": "parallel_phases", "seconds": time.perf_counter() - t_par})
 
     # Beside each render kernel's published-peak bound, its operations at
     # the rates the probe just measured.

@@ -15,8 +15,10 @@ host runtime is ported too: tiled, retried and resumable renders
 (``orchestrator.py``), progressive and inverse-run checkpoints
 (``utils/checkpoint.py``), scene files (``models/io.py``), the NaN guard
 (``utils/debug.py``), the native image writers (``utils/native.py``) and the
-benchmark suite (``cli bench --suite``).  This package never imports JAX or
-the JAX package.
+benchmark suite (``cli bench --suite``).  So are the mesh and multi-process
+paths (``parallel/``: sharded renders and inverse steps over a mesh of
+devices, multi-process renders on ``torch.distributed``) and ``entry.py``.
+This package never imports JAX or the JAX package.
 """
 
 from .config import RenderConfig

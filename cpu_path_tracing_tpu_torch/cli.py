@@ -1,8 +1,6 @@
 """Command-line interface: the ``render``, ``invert`` and ``bench`` subcommands.
 
-Counterpart of ``cpu_path_tracing_tpu/cli.py`` on one device (the mesh and
-multi-process options wait for ``parallel/`` on torch.distributed,
-ROADMAP.md Queue 1):
+Counterpart of ``cpu_path_tracing_tpu/cli.py``:
 
     python -m cpu_path_tracing_tpu_torch.cli render --scene box_mirror \\
         --width 1024 --height 768 --total-spp 32 -o disco.png
@@ -16,6 +14,11 @@ ROADMAP.md Queue 1):
     python -m cpu_path_tracing_tpu_torch.cli bench --suite --suite-out suite.md
     python -m cpu_path_tracing_tpu_torch.cli render --scene box --width 64 \\
         --height 48 --spp 2 --device cpu -o box.png
+    python -m cpu_path_tracing_tpu_torch.cli render --total-spp 32 --mesh 4x2
+    python -m cpu_path_tracing_tpu_torch.cli render --coordinator HOST0:12345 \\
+        --num-processes 2 --process-id $RANK --shard-dir shards/
+    python -m cpu_path_tracing_tpu_torch.cli invert --scene box --mesh 2x2
+    python -m cpu_path_tracing_tpu_torch.cli bench --scaling
 
 Every subcommand runs on the card (``--device cuda``, the default) and
 fails before doing any work when there is none; ``--device cpu`` asks for
@@ -32,6 +35,21 @@ tiles, retried on failure and resumable from ``--checkpoint``, with
 chosen tiles); or progressively, ``--flush-every`` samples a cell a batch,
 checkpointed and resumable, with a preview after each batch, with
 ``--checkpoint`` or ``--preview`` (``utils/checkpoint.render_progressive``).
+
+``--mesh TxS`` renders (``render``) or takes the inverse step (``invert``)
+over a T-tile by S-sample-shard mesh in one process
+(``parallel/render.py``, ``grad.make_sharded_accum_train_step``), its
+entries the visible devices of ``--device``'s kind in turn, repeated when
+the mesh has more entries than there are devices (``_mesh``).
+``--num-processes N`` with ``--coordinator HOST:PORT`` and
+``--process-id`` renders over N processes on ``torch.distributed``
+(``parallel/distributed.py``, ``_render_multihost``): by default the ranks'
+sums are all-gathered and rank 0 writes the image; with ``--shard-dir``
+each rank writes its own cells there and rank 0 assembles them, waiting at
+most ``--shard-timeout`` seconds for them before it re-renders the cells of
+a rank that never wrote (``--inject-shard-loss P`` makes rank P exit with
+code 3 before it writes).  ``bench --scaling`` renders one image on meshes
+of 1, 2, 4, ... of the visible devices and prints each one's speed-up.
 
 ``--integrator`` picks the route (``render.resolve_integrator``): 'pallas'
 the CUDA kernels, 'wavefront' the plain wavefront loop, 'auto' the kernels
@@ -63,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -73,10 +92,6 @@ from . import RenderConfig, get_scene, scene_names, write_png, write_ppm
 from .render import render_image
 from .utils.metrics import ProgressLogger, RenderReport, Timer, device_label
 from .utils.profiling import maybe_trace
-
-# Flags of the JAX CLI that need parallel/ on torch.distributed.
-_UNPORTED = ("mesh", "coordinator", "num_processes", "process_id", "shard_dir")
-
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--scene", default="box_mirror", choices=scene_names())
@@ -105,10 +120,14 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "smallpt; the plain paths only)")
     p.add_argument("--lanes", type=int, default=None,
                    help="lane-pool width of the per-step paths (default 1<<19)")
-    for flag in _UNPORTED:
-        p.add_argument("--" + flag.replace("_", "-"), default=None,
-                       help="not ported yet (ROADMAP.md Queue 1: parallel/ on "
-                            "torch.distributed)")
+    p.add_argument("--mesh", default=None, help="TILESxSAMPLES device mesh, e.g. 4x2")
+    # The process group of parallel/distributed.py; one process a rank.
+    p.add_argument("--coordinator", default=None, help="rank 0's address HOST:PORT")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--shard-dir", default=None,
+                   help="no-collective mode: each rank writes its cells here, rank 0 "
+                        "assembles them")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -131,6 +150,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max-retries", type=int, default=2, help="retries per failed tile")
     p.add_argument("--inject-fault", default=None, metavar="TILE[:TIMES],...",
                    help="fault injection: fail these tiles on their first TIMES attempts")
+    p.add_argument("--inject-shard-loss", type=int, default=None, metavar="PROC",
+                   help="fault injection (--shard-dir): rank PROC exits with code 3 after "
+                        "rendering, before it writes its shard")
+    p.add_argument("--shard-timeout", type=float, default=300.0,
+                   help="seconds rank 0 waits for the other ranks' shard files before it "
+                        "re-renders the missing cells itself")
     p = sub.add_parser("invert", help="inverse rendering (recover scene params)")
     _add_common(p)
     p.add_argument("--steps", type=int, default=100)
@@ -158,7 +183,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="divide each row's spp by this (for CPU smoke runs)")
     p.add_argument("--suite-out", default=None, help="write the suite's markdown table here")
     p.add_argument("--scaling", action="store_true",
-                   help="not ported yet (ROADMAP.md Queue 1: parallel/ on torch.distributed)")
+                   help="the render on meshes of 1, 2, 4, ... of the visible devices")
     p.add_argument("--ring", type=int, default=None,
                    help="not ported: the port has no result ring")
     return ap
@@ -197,11 +222,48 @@ def _device(args) -> torch.device:
     return device
 
 
+def _mesh_shape(args):
+    """``--mesh TxS`` as (T, S), or None."""
+    if not args.mesh:
+        return None
+    try:
+        n_tiles, n_samples = (int(v) for v in args.mesh.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {args.mesh!r}: expected TILESxSAMPLES, e.g. 4x2") from None
+    return n_tiles, n_samples
+
+
+def _visible_devices(device: torch.device) -> list:
+    """The distinct devices of ``device``'s kind: every visible card for
+    ``cuda`` without an index, else ``device`` alone."""
+    if device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _mesh(args):
+    """The ``--mesh`` of ``args.device``'s kind: the visible devices in
+    turn, each repeated when the mesh has more entries than there are
+    devices (a 2x2 mesh on one card is four entries of it)."""
+    from .parallel.mesh import make_mesh
+
+    n_tiles, n_samples = _mesh_shape(args)
+    devices = _visible_devices(args.device)
+    return make_mesh(n_tiles, n_samples,
+                     [devices[i % len(devices)] for i in range(n_tiles * n_samples)])
+
+
 def cmd_render(args) -> int:
+    if args.num_processes:
+        return _render_multihost(args)
     cfg = _config(args)
     scene = _scene(args, cfg)
     with Timer() as t:
-        if args.tile_cells:
+        if args.mesh:
+            from .parallel.render import render_image_sharded
+
+            img = render_image_sharded(scene, cfg, _mesh(args))
+        elif args.tile_cells:
             from .orchestrator import FaultInjector, render_tiled
 
             injector = FaultInjector.parse(args.inject_fault) if args.inject_fault else None
@@ -220,6 +282,83 @@ def cmd_render(args) -> int:
     (write_ppm if args.out.endswith(".ppm") else write_png)(args.out, img)
     print(f"{args.scene_file or args.scene} {cfg.width}x{cfg.height} @ {cfg.total_spp} total "
           f"spp on {scene.device} -> {args.out} in {t.seconds:.2f}s", file=sys.stderr)
+    return 0
+
+
+def _exit_now(code: int) -> None:
+    """Leave at once with ``code``: after a lost rank, past the shutdown of
+    a process group that still counts the dead rank."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def _render_multihost(args) -> int:
+    """Render over ``--num-processes`` ranks (``parallel/distributed.py``).
+
+    Replicated mode (the default): the ranks' sums are all-gathered and rank
+    0 writes the image.  Shard mode (``--shard-dir``): no collective; each
+    rank writes its own cells and rank 0, after waiting for the files,
+    assembles them and re-renders those of a rank that never wrote."""
+    import torch.distributed as dist
+
+    from .parallel.distributed import (
+        assemble_shards, global_mesh, init_distributed, rank_device, render_fingerprint,
+        render_image_multihost, render_shard_multihost, signal_lost_hosts, wait_all_or_lost,
+        wait_for_shards, write_shards)
+
+    init_distributed(args.coordinator, args.num_processes, args.process_id)
+    args.device = rank_device(args.device)
+    cfg = _config(args)
+    scene = _scene(args, cfg)
+    mesh = global_mesh(n_samples=_mesh_shape(args)[1] if args.mesh else 1)
+    pid, world = dist.get_rank(), dist.get_world_size()
+    for flag in ("tile_cells", "checkpoint", "preview"):
+        if getattr(args, flag, None):
+            print(f"WARNING: --{flag.replace('_', '-')} is a single-process feature and is "
+                  "ignored under --num-processes", file=sys.stderr)
+    lost_hosts = False
+    with Timer() as t:
+        if args.shard_dir:
+            fp = render_fingerprint(scene, cfg)
+            shards = render_shard_multihost(scene, cfg, mesh)
+            if args.inject_shard_loss is not None and pid == args.inject_shard_loss:
+                # This rank dies after rendering, before its shard is written.
+                print(f"inject-shard-loss: process {pid} exiting", file=sys.stderr)
+                _exit_now(3)
+            write_shards(args.shard_dir, shards, cfg, pid, fingerprint=fp)
+            if pid == 0:
+                names = wait_for_shards(args.shard_dir, world, timeout=args.shard_timeout,
+                                        fingerprint=fp)
+                lost_hosts = len(names) < world
+                if lost_hosts:
+                    # Published before the recovery render, so that the other
+                    # survivors leave at once.
+                    signal_lost_hosts(args.shard_dir)
+                img = assemble_shards(args.shard_dir, cfg, scene=scene, fingerprint=fp).cpu()
+            else:
+                # Past --shard-timeout by a margin for rank 0's own detection.
+                outcome = wait_all_or_lost(args.shard_dir, world,
+                                           timeout=args.shard_timeout + 30.0, fingerprint=fp)
+                if outcome == "lost":
+                    print(f"process {pid}: a lost rank was signalled; shard written, exiting",
+                          file=sys.stderr)
+                    _exit_now(0)
+                if outcome == "timeout":
+                    print(f"process {pid}: no completion or loss signal within the timeout "
+                          "(rank 0 may have died)", file=sys.stderr)
+                    return 1
+                img = None
+        else:
+            img = render_image_multihost(scene, cfg, mesh).cpu()
+    if pid == 0:
+        (write_ppm if args.out.endswith(".ppm") else write_png)(args.out, img)
+        print(f"[{world} processes, rank 0 on {scene.device}] {args.scene_file or args.scene} "
+              f"{cfg.width}x{cfg.height} @ {cfg.total_spp} total spp -> {args.out} in "
+              f"{t.seconds:.2f}s", file=sys.stderr)
+        if lost_hosts:
+            _exit_now(0)
+    dist.destroy_process_group()
     return 0
 
 
@@ -272,12 +411,16 @@ def cmd_invert(args) -> int:
 
     params = perturbed_params(true_params, args.seed, args.perturb)
     fp = invert_fingerprint(scene, cfg, fields, args.lr, cell_chunk=args.cell_chunk,
-                            sample_chunk=args.sample_chunk)
+                            sample_chunk=args.sample_chunk, mesh_shape=_mesh_shape(args))
     state = load_or_init_invert(args.checkpoint, fp, params)
-    step_fn = make_accum_train_step(scene, cfg, args.lr, cell_chunk=args.cell_chunk,
-                                    sample_chunk=args.sample_chunk,
-                                    compact=not args.no_compact_backward,
-                                    replay=not args.no_replay_backward)
+    kw = dict(cell_chunk=args.cell_chunk, sample_chunk=args.sample_chunk,
+              compact=not args.no_compact_backward, replay=not args.no_replay_backward)
+    if args.mesh:
+        from .grad import make_sharded_accum_train_step
+
+        step_fn = make_sharded_accum_train_step(_mesh(args), scene, cfg, args.lr, **kw)
+    else:
+        step_fn = make_accum_train_step(scene, cfg, args.lr, **kw)
     if state.step:
         print(f"resumed from {args.checkpoint} at step {state.step}", file=sys.stderr)
         step_fn.load_state_dict({"params": state.params, "optimizer": state.opt_state})
@@ -476,10 +619,76 @@ def cmd_bench_suite(args) -> int:
     return 0
 
 
+def _sync_all(devices) -> None:
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def cmd_bench_scaling(args) -> int:
+    """Strong scaling (JAX ``cmd_bench_scaling``): the same image rendered
+    on tiles-only meshes of 1, 2, 4, ... distinct visible devices, one JSON
+    line a mesh (host seconds of the best of ``--repeats`` after a warm-up,
+    each ended by a synchronize of every card; camera rays per second, not
+    path segments; speed-up and efficiency against one device), and a
+    markdown table (``--suite-out``).  On the CPU the table is titled a
+    plumbing gate: one device, no scaling to measure."""
+    from .parallel.mesh import make_mesh
+    from .parallel.render import render_cells_sharded
+
+    devices = _visible_devices(args.device)
+    counts = [c for c in (1, 2, 4, 8, 16, 32, 64) if c <= len(devices)]
+    cfg = _config(args)
+    scene = _scene(args, cfg)
+    rows = []
+    for n in counts:
+        mesh = make_mesh(n, 1, devices[:n])
+
+        def run():
+            render_cells_sharded(scene, cfg, mesh)
+            _sync_all(devices[:n])
+
+        run()  # warm-up
+        best = float("inf")
+        for _ in range(args.repeats):
+            t0 = time.perf_counter()
+            run()
+            best = min(best, time.perf_counter() - t0)
+        rows.append((n, best))
+        t1 = rows[0][1]
+        print(json.dumps({"devices": n, "seconds": best,
+                          "camera_mrays_per_s": cfg.num_cells * cfg.spp / best / 1e6,
+                          "speedup": t1 / best, "efficiency_vs_linear": t1 / (n * best),
+                          "device": device_label(devices[0])}), flush=True)
+    gate = devices[0].type == "cpu"
+    lines = [
+        f"# {'Mesh-scaling PLUMBING GATE' if gate else 'Strong scaling'} — {args.scene} "
+        f"{cfg.width}x{cfg.height}@{cfg.total_spp} total spp on {device_label(devices[0])}",
+        "",
+        "Fixed workload, tiles-axis mesh over 1..N distinct devices.  Rates are camera",
+        "rays/s (cells x spp / wall), not path segments/s: relative efficiency only.",
+        *(["", "CAVEAT: one CPU device; this run checks the sharded path, it measures no",
+           "scaling."] if gate else []),
+        "",
+        "| devices | wall s | speedup | efficiency vs linear |",
+        "|---|---|---|---|",
+    ]
+    t1 = rows[0][1]
+    for n, dt in rows:
+        lines.append(f"| {n} | {dt:.4f} | {t1 / dt:.2f}x | {100 * t1 / (n * dt):.1f}% |")
+    report = "\n".join(lines) + "\n"
+    if args.suite_out:
+        with open(args.suite_out, "w") as fh:
+            fh.write(report)
+    print(report, file=sys.stderr)
+    return 0
+
+
 def cmd_bench(args) -> int:
-    if args.scaling or args.ring is not None:
-        raise SystemExit("bench --scaling is not ported yet (ROADMAP.md Queue 1: parallel/ on "
-                         "torch.distributed), nor --ring: the port has no result ring")
+    if args.ring is not None:
+        raise SystemExit("bench --ring is not ported: the port has no result ring")
+    if args.scaling:
+        return cmd_bench_scaling(args)
     if args.suite:
         return cmd_bench_suite(args)
     from .ops.wavefront import render_wavefront, render_wavefront_per_step
@@ -507,10 +716,6 @@ def cmd_bench(args) -> int:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    unported = [f for f in _UNPORTED if getattr(args, f) is not None]
-    if unported:
-        raise SystemExit(f"--{unported[0].replace('_', '-')} is not ported yet (ROADMAP.md "
-                         "Queue 1: parallel/ on torch.distributed)")
     args.device = _device(args)  # fails before any work, and before a trace is opened
     cmd = {"render": cmd_render, "invert": cmd_invert, "bench": cmd_bench}[args.cmd]
     with maybe_trace(args.profile_dir):

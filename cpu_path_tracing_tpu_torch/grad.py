@@ -1,8 +1,9 @@
 """Differentiable rendering and inverse rendering.
 
-Counterpart of ``cpu_path_tracing_tpu/grad.py`` for one device (the sharded
-steps wait for ``parallel/`` on torch.distributed, ROADMAP.md Queue 1).
-Every field of ``OPTIMIZABLE`` differentiates on the scene's device.
+Counterpart of ``cpu_path_tracing_tpu/grad.py``.  Every field of
+``OPTIMIZABLE`` differentiates on the scene's device; the sharded steps
+(``make_sharded_accum_train_step``, ``make_sharded_train_step``) spread the
+same work over a ('tiles', 'samples') mesh of devices in one process.
 
 The rendered cell sum is a ``torch.autograd.Function`` (``_RenderSpan``)
 with a decoupled forward and backward, as the JAX package's custom VJP:
@@ -42,6 +43,8 @@ from .models.camera import CameraConfig
 from .models.scene import SPHERE_FIELDS, Scene
 from .ops.integrator import radiance
 from .ops.replay import replay_param_grads_auto
+from .parallel.mesh import SAMPLE_AXIS, TILE_AXIS, Mesh
+from .parallel.render import replicate_scene, samples_per_shard, sum_shards
 from .render import camera_rays, render_cells_range
 from .utils import debug
 
@@ -297,29 +300,11 @@ def make_accum_loss_grad(scene: Scene, cfg: RenderConfig, *, cell_chunk: Optiona
     ``cell_chunk``-cell spans and divided by ``3 * num_cells`` once at the
     end (the chunk loop of the JAX package's ``make_accum_train_step``).
     ``loss_grad.span.bwd_cfg`` is the scan VJP's config.  Inside
-    ``utils/debug.debug_context`` both are checked for NaN."""
-    n = cfg.num_cells
-    cc = min(cell_chunk or n, n)
-    render_mean = make_diff_render(scene, cfg, sample_chunk, compact=compact, replay=replay)
-
-    def loss_grad(params, targets):
-        names, values = flatten_params(params)
-        leaves = [v.detach().requires_grad_(True) for v in values]
-        p = unflatten_params(names, leaves)
-        sq_sum = grads = None
-        for start in range(0, n, cc):
-            ids = torch.arange(start, min(start + cc, n), dtype=torch.int64, device=scene.device)
-            sq = ((render_mean(p, ids) - targets[start:start + ids.shape[0]]) ** 2).sum()
-            g = torch.autograd.grad(sq, leaves)
-            sq_sum = sq.detach() if sq_sum is None else sq_sum + sq.detach()
-            grads = g if grads is None else tuple(a + b for a, b in zip(grads, g))
-        denom = 3 * n
-        loss, grads = sq_sum / denom, unflatten_params(names, [g / denom for g in grads])
-        debug.guard({"loss": loss, "grads": grads}, "inverse step")
-        return loss, grads
-
-    loss_grad.span = render_mean.span
-    return loss_grad
+    ``utils/debug.debug_context`` both are checked for NaN.  It is
+    ``make_sharded_accum_loss_grad`` on the 1x1 mesh of the scene's device."""
+    return make_sharded_accum_loss_grad(Mesh(((scene.device,),)), scene, cfg,
+                                        cell_chunk=cell_chunk, sample_chunk=sample_chunk,
+                                        compact=compact, replay=replay)
 
 
 def make_accum_train_step(scene: Scene, cfg: RenderConfig, lr: float, *,
@@ -353,6 +338,23 @@ def make_accum_train_step(scene: Scene, cfg: RenderConfig, lr: float, *,
     cc = min(cell_chunk or n, n)
     loss_grad = make_accum_loss_grad(scene, cfg, cell_chunk=cell_chunk,
                                      sample_chunk=sample_chunk, compact=compact, replay=replay)
+    step = _adam_step(loss_grad, lr)
+    step.span = loss_grad.span
+    if compact:
+        def drop_check(params=None):
+            # Nothing was compacted before a first step, nor by a replay step.
+            names = step.leaf_names()
+            if names is None or step.span.uses_replay({k.partition(".")[0] for k in names}):
+                return 0
+            return backward_drop_count(scene, step.span.bwd_cfg, cc, params=params)
+
+        step.drop_check = drop_check
+    return step
+
+
+def _adam_step(loss_grad, lr: float):
+    """One Adam step a call over ``loss_grad(params, targets) -> (loss,
+    grads)``, with the state of ``make_accum_train_step``'s docstring."""
     state = {}
 
     def init(names, values):
@@ -391,18 +393,93 @@ def make_accum_train_step(scene: Scene, cfg: RenderConfig, lr: float, *,
         opt_sd.setdefault("param_groups", state["opt"].state_dict()["param_groups"])
         state["opt"].load_state_dict(opt_sd)
 
-    step.span = loss_grad.span
     step.state_dict, step.load_state_dict = state_dict, load_state_dict
-    if compact:
-        def drop_check(params=None):
-            # Nothing was compacted before a first step, nor by a replay step.
-            span = step.span
-            if not state or span.uses_replay({n.partition(".")[0] for n in state["names"]}):
-                return 0
-            return backward_drop_count(scene, span.bwd_cfg, cc, params=params)
-
-        step.drop_check = drop_check
+    step.leaf_names = lambda: state.get("names")
     return step
+
+
+def make_sharded_accum_loss_grad(mesh, scene: Scene, cfg: RenderConfig, *,
+                                 cell_chunk: Optional[int] = None,
+                                 sample_chunk: Optional[int] = None, compact: bool = True,
+                                 replay: bool = True):
+    """``make_accum_loss_grad`` over a ('tiles', 'samples') mesh
+    (``parallel/mesh.py``; JAX ``grad.py:389-499``).
+
+    Each ``cell_chunk`` (rounded up to a multiple of ``n_tiles``) is split
+    evenly over the tiles; the last chunk's cells are rounded up to a
+    multiple of ``n_tiles`` with ids that continue past ``num_cells`` (a
+    contiguous span renders on every route), whose 0/1 mask zeroes their
+    loss and gradient.  Sample shard s of a tile renders
+    samples ``[s*spp_local, (s+1)*spp_local)`` of the tile's cells through
+    ``make_diff_render_span`` on its device (the forward kernel, then the
+    replay kernel or the scan VJP, on the card).  The shards' sums are added
+    in shard order on the tile's first device and the loss formed there.
+    The cotangent of every shard's sums is the same,
+    ``ct = 2·mask·(cells - target)/spp``, handed to each shard's backward
+    explicitly; the shards' gradients are added once, in mesh order, on the
+    mesh's first device.  No collective is differentiated, so no gradient
+    is counted ``n_samples`` times (the JAX package's psum-vs-pmean trap).
+
+    Returns ``loss_grad(params, targets) -> (loss, grads)`` as
+    ``make_accum_loss_grad`` does, on the mesh's first device, with
+    ``loss_grad.span`` that device's span; equal to the one-device loss and
+    gradient up to the association of the sums."""
+    n = cfg.num_cells
+    n_tiles = mesh.shape[TILE_AXIS]
+    spp_local = samples_per_shard(cfg, mesh.shape[SAMPLE_AXIS])
+    cc = min(cell_chunk or n, n)
+    cc = -(-cc // n_tiles) * n_tiles
+    first = mesh.devices[0][0]
+    scenes = replicate_scene(scene, mesh)
+    spans = {d: make_diff_render_span(sc, cfg, spp_local, sample_chunk, compact=compact,
+                                      replay=replay) for d, sc in scenes.items()}
+
+    def loss_grad(params, targets):
+        names, values = flatten_params(params)
+        leaves = {d: [v.detach().to(d).requires_grad_(True) for v in values] for d in spans}
+        local = {d: unflatten_params(names, ls) for d, ls in leaves.items()}
+        sq_sum = grads = None
+        for chunk in range(0, n, cc):
+            per = -(-(min(chunk + cc, n) - chunk) // n_tiles)
+            for t, row in enumerate(mesh.devices):
+                start = chunk + t * per
+                sums = [spans[d](local[d], torch.arange(start, start + per, device=d),
+                                 s * spp_local) for s, d in enumerate(row)]
+                dev = row[0]
+                ids = torch.arange(start, start + per, device=dev)
+                mask = (ids < n).to(sums[0].dtype)[:, None]
+                target = targets[torch.clamp(ids, max=n - 1).to(targets.device)].to(dev)
+                with torch.no_grad():
+                    cells = sum_shards([x.detach() for x in sums], dev) / cfg.spp
+                    diff = mask * (cells - target)
+                    sq = (diff ** 2).sum().to(first)
+                    ct = 2.0 * diff / cfg.spp
+                sq_sum = sq if sq_sum is None else sq_sum + sq
+                for s, d in enumerate(row):
+                    g = torch.autograd.grad(sums[s], leaves[d], grad_outputs=ct.to(d))
+                    g = [x.to(first) for x in g]
+                    grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        denom = 3 * n
+        loss, grads = sq_sum / denom, unflatten_params(names, [g / denom for g in grads])
+        debug.guard({"loss": loss, "grads": grads}, "inverse step")
+        return loss, grads
+
+    loss_grad.span = spans[first].span
+    return loss_grad
+
+
+def make_sharded_accum_train_step(mesh, scene: Scene, cfg: RenderConfig, lr: float, *,
+                                  cell_chunk: Optional[int] = None,
+                                  sample_chunk: Optional[int] = None, compact: bool = True,
+                                  replay: bool = True):
+    """``make_accum_train_step`` over a mesh: one Adam step a call on the
+    gradient of ``make_sharded_accum_loss_grad``, with the same
+    ``step(params, targets) -> (params, loss)``, ``state_dict`` and
+    ``load_state_dict``; the params and Adam's moments live on the mesh's
+    first device."""
+    return _adam_step(make_sharded_accum_loss_grad(
+        mesh, scene, cfg, cell_chunk=cell_chunk, sample_chunk=sample_chunk, compact=compact,
+        replay=replay), lr)
 
 
 def render_target(scene: Scene, cfg: RenderConfig, cell_chunk: Optional[int] = None):
@@ -416,3 +493,47 @@ def render_target(scene: Scene, cfg: RenderConfig, cell_chunk: Optional[int] = N
             ids = torch.arange(start, min(start + cc, n), dtype=torch.int64, device=scene.device)
             outs.append(render_cells_range(scene, cfg, ids, 0, cfg.spp) / cfg.spp)
     return torch.cat(outs, dim=0)
+
+
+def make_sharded_train_step(mesh, cfg: RenderConfig, optimizer):
+    """``train_step`` over a ('tiles', 'samples') mesh (JAX
+    ``grad.py:521-566``).
+
+    Returns ``step(params, scene, cell_ids, target_cells) -> (params,
+    loss)``: ``optimizer`` is a ``torch.optim`` optimizer over the leaves of
+    ``params`` (``flatten_params``), ``cell_ids`` (any id set; its length a
+    multiple of ``n_tiles``) and ``target_cells`` [len(cell_ids), 3] are split
+    evenly over the tiles.  Each shard renders its cells for its sample range
+    through the differentiable batch route on its device, from copies of the
+    params that autograd carries back; a tile's loss term is the mean
+    squared error of its cells over ``n_tiles``, and the terms are added in
+    tile order on the mesh's first device.  One backward of that sum gives
+    each gradient once."""
+    cfg = _diff_cfg(cfg)
+    n_tiles = mesh.shape[TILE_AXIS]
+    spp_local = samples_per_shard(cfg, mesh.shape[SAMPLE_AXIS])
+    first = mesh.devices[0][0]
+
+    def step(params, scene: Scene, cell_ids, target_cells):
+        if cell_ids.shape[0] % n_tiles:
+            raise ValueError(f"{cell_ids.shape[0]} cell ids not divisible by {n_tiles} tiles")
+        per = cell_ids.shape[0] // n_tiles
+        optimizer.zero_grad(set_to_none=True)
+        names, values = flatten_params(params)
+        local = {d: merge_params(sc, unflatten_params(names, [v.to(d) for v in values]))
+                 for d, sc in replicate_scene(scene, mesh).items()}
+        loss = None
+        for t, row in enumerate(mesh.devices):
+            dev = row[0]
+            ids = cell_ids[t * per:(t + 1) * per]
+            sums = [render_cells_range(local[d], cfg, ids.to(d), s * spp_local, spp_local)
+                    for s, d in enumerate(row)]
+            cells = sum_shards(sums, dev) / cfg.spp
+            target = target_cells[t * per:(t + 1) * per].to(dev)
+            term = (((cells - target) ** 2).mean() / n_tiles).to(first)
+            loss = term if loss is None else loss + term
+        loss.backward()
+        optimizer.step()
+        return params, loss.detach()
+
+    return step

@@ -154,17 +154,19 @@ class InvertState:
 
 
 def invert_fingerprint(scene: Scene, cfg: RenderConfig, fields, lr: float, cell_chunk=None,
-                       sample_chunk=None) -> str:
+                       sample_chunk=None, mesh_shape=None) -> str:
     """The render fingerprint plus what shapes the optimization trajectory:
-    the fields, ``lr``, spp and the chunk sizes (another chunking reorders
-    the float sums, so a resume is bitwise only under the same one), and
-    ``"mesh": None``: the port runs on one device, and JAX hashes the same
-    key there, so the two fingerprints agree."""
+    the fields, ``lr``, spp, the chunk sizes and the mesh: another chunking,
+    or the shards' sums added in another order, reorders the float sums, so
+    a resume is bitwise only under the same ones, and a one-device
+    checkpoint must not continue under ``--mesh``.  ``mesh_shape`` is
+    (n_tiles, n_samples), or None for one device; hashed as JAX does
+    (``"mesh": [t, s]`` or null), so the two fingerprints agree."""
     h = hashlib.sha256()
     h.update(_fingerprint(scene, cfg).encode())
     h.update(json.dumps({"fields": sorted(fields), "lr": lr, "spp": cfg.spp,
                          "cell_chunk": cell_chunk, "sample_chunk": sample_chunk,
-                         "mesh": None}).encode())
+                         "mesh": list(mesh_shape) if mesh_shape else None}).encode())
     return h.hexdigest()[:16]
 
 

@@ -3,7 +3,7 @@
 
     python3 scripts/torch_chip_measure.py
         [--part build|fmad|profile|scenes|train|step|probe|stream|simt|designs|geometry|
-                geometry_step|all]
+                geometry_step|sharded|multicard|all]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
@@ -81,6 +81,18 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
 - geometry_step: one whole production geometry step as ``cli invert``
   builds it (ms, loss, peak memory, forward launches).  About 5 minutes on
   an H100; not part of ``all``.
+- sharded: the mesh paths on one card beside their one-device forms, in
+  turns: the disco render one pass, on a 4x1 and on a 2x2 mesh of cuda:0,
+  and the production inverse step on one device and on a 2x2 mesh, each a
+  CUDA-event time and ``profile``'s breakdown over 3 calls.  About 30 s;
+  not part of ``all``.
+- multicard: the same paths over every visible card (a machine with
+  several): the disco render on tiles-only meshes of 2, 4, ... distinct
+  cards against one pass (bitwise, host ms), the production step on a
+  2x(cards/2) mesh against one device (loss and gradients, ms a step),
+  ``cli render`` with one rank a card (replicated and ``--shard-dir``:
+  wall seconds, PNG bytes) and ``cli bench --scaling``.  Not part of
+  ``all``.
 
 Imports nothing of JAX.  Needs a CUDA device.
 """
@@ -91,6 +103,7 @@ import argparse
 import contextlib
 import cProfile
 import ctypes
+import io
 import json
 import os
 import pstats
@@ -282,6 +295,157 @@ def part_train(dev):
           "first_step_s": first_s, "second_step_s": second_s,
           "first_step_top_cumulative": [{"s": c, "calls": n, "fn": f} for c, n, f in rows]})
     emit({"train_profile": profiled(call)})
+
+
+def part_sharded(dev):
+    """The mesh paths on one card beside their one-device forms, in turns
+    (one device, mesh, mesh, one device): the disco render on a 4x1 and a
+    2x2 mesh of cuda:0, and the production inverse step on a 2x2 mesh,
+    each a CUDA-event time (1 warm-up, then 3 calls) and a profile over 3
+    calls (``profiled``)."""
+    from cpu_path_tracing_tpu_torch import grad
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+    from cpu_path_tracing_tpu_torch.parallel.render import render_image_sharded
+
+    scene = tp.get_scene("box_mirror", MAIN.width, MAIN.height).to(dev)
+    renders = {"one_pass": lambda: tp.render_image(scene, MAIN)}
+    for shape in ((4, 1), (2, 2)):
+        mesh = make_mesh(*shape, [dev] * 4)
+        renders[f"mesh_{shape[0]}x{shape[1]}"] = (
+            lambda mesh=mesh: render_image_sharded(scene, MAIN, mesh))
+    for name in ("one_pass", "mesh_4x1", "mesh_2x2", "mesh_2x2", "mesh_4x1", "one_pass"):
+        times, _ = event_times(renders[name])
+        emit({"sharded_render": name, "ms": times, "profile": profiled(renders[name])})
+
+    cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    chunk = 1 << 17
+    box = tp.get_scene("box", cfg.width, cfg.height).to(dev)
+    target = grad.render_target(box, cfg, chunk)
+    p0 = {k: v + 0.02 for k, v in grad.split_params(box, ("albedo", "emission")).items()}
+    steps = {"one_device": grad.make_accum_train_step(box, cfg, 1e-2, cell_chunk=chunk),
+             "mesh_2x2": grad.make_sharded_accum_train_step(make_mesh(2, 2, [dev] * 4), box, cfg,
+                                                            1e-2, cell_chunk=chunk)}
+    for name in ("one_device", "mesh_2x2", "mesh_2x2", "one_device"):
+        state = {"params": p0}
+
+        def call(step=steps[name]):
+            state["params"], _ = step(state["params"], target)
+
+        times, _ = event_times(call)
+        emit({"sharded_train": name, "step_ms": times, "profile": profiled(call)})
+
+
+def part_multicard(dev):
+    """The mesh and multi-process paths over every visible card (run it on
+    a machine with several): the disco render one pass on cuda:0 and on
+    tiles-only meshes of 2, 4, ... distinct cards (bitwise against the one
+    pass; host seconds, each call ended by a synchronize of every card, 1
+    warm-up, 3 calls), the production inverse step on cuda:0 and on a
+    2x(cards/2) mesh of distinct cards (the first step's loss and gradients
+    against one device; steps/s), ``cli render`` over one rank a card
+    (replicated and ``--shard-dir``; wall seconds, PNG bytes against one
+    process), and ``cli bench --scaling``."""
+    import tempfile
+
+    from cpu_path_tracing_tpu_torch import cli, grad
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+    from cpu_path_tracing_tpu_torch.parallel.render import render_image_sharded
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+    def host_ms(fn):
+        fn()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            for d in cards:
+                torch.cuda.synchronize(d)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return times
+
+    scene = tp.get_scene("box_mirror", MAIN.width, MAIN.height).to(dev)
+    ref = tp.render_image(scene, MAIN)
+    emit({"multicard_render": "one_pass", "cards": 1,
+          "ms": host_ms(lambda: tp.render_image(scene, MAIN))})
+    n = 2
+    while n <= len(cards):
+        mesh = make_mesh(n, 1, cards[:n])
+        img = render_image_sharded(scene, MAIN, mesh)
+        emit({"multicard_render": f"mesh_{n}x1", "cards": n,
+              "bitwise": bool(torch.equal(img.to(dev), ref)),
+              "ms": host_ms(lambda: render_image_sharded(scene, MAIN, mesh))})
+        n *= 2
+
+    cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    chunk = 1 << 17
+    box = tp.get_scene("box", cfg.width, cfg.height).to(dev)
+    target = grad.render_target(box, cfg, chunk)
+    p0 = {k: v + 0.02 for k, v in grad.split_params(box, ("albedo", "emission")).items()}
+    l1, g1 = grad.make_accum_loss_grad(box, cfg, cell_chunk=chunk)(p0, target)
+    if len(cards) >= 2:
+        mesh = make_mesh(len(cards) // 2, 2, cards[:len(cards) // 2 * 2])
+        l2, g2 = grad.make_sharded_accum_loss_grad(mesh, box, cfg, cell_chunk=chunk)(p0, target)
+        dev_rec = {"loss_rel_dev": abs(float(l2) - float(l1)) / float(l1),
+                   "grad_dev_over_max": {k: float((g2[k].to(dev) - g1[k]).abs().max())
+                                         / float(g1[k].abs().max()) for k in g1}}
+        for name, step in (("one_device", grad.make_accum_train_step(box, cfg, 1e-2,
+                                                                      cell_chunk=chunk)),
+                           (f"mesh_{mesh.shape['tiles']}x2", grad.make_sharded_accum_train_step(
+                               mesh, box, cfg, 1e-2, cell_chunk=chunk))):
+            state = {"params": p0}
+
+            def call(step=step):
+                state["params"], _ = step(state["params"], target)
+
+            emit({"multicard_train": name, "step_ms": host_ms(call), **dev_rec})
+
+    work = tempfile.mkdtemp(prefix="multicard_")
+    disco = ["--scene", "box_mirror", "--width", "1024", "--height", "768", "--total-spp", "32",
+             "--max-depth", "100"]
+    one = os.path.join(work, "one.png")
+    cli.main(["render", *disco, "-o", one])
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    for mode, extra in (("replicated", []), ("shard_dir", ["--shard-dir",
+                                                           os.path.join(work, "shards")])):
+        png = os.path.join(work, f"{mode}.png")
+        argv = [sys.executable, "-m", "cpu_path_tracing_tpu_torch.cli", "render", *disco,
+                "--num-processes", str(len(cards)), "--coordinator",
+                f"127.0.0.1:{free_port()}", "-o", png, *extra]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([*argv, "--process-id", str(r)], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(len(cards))]
+        rcs = []
+        try:
+            for proc in procs:
+                proc.communicate(timeout=300)
+                rcs.append(proc.returncode)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        emit({"multicard_processes": mode, "ranks": len(cards), "rcs": rcs,
+              "wall_s": time.perf_counter() - t0,
+              "png_equal": os.path.exists(png) and open(png, "rb").read() == open(one,
+                                                                                  "rb").read()})
+    shutil.rmtree(work, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["bench", "--scaling", *disco])
+    for ln in buf.getvalue().splitlines():
+        emit({"multicard_scaling": json.loads(ln)})
+
+
+def free_port() -> int:
+    """A free TCP port on this host."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 GEOMETRY_CFG = dict(width=400, height=400, spp=16, max_depth=100)
@@ -779,7 +943,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "step",
                                        "probe", "stream", "simt", "designs", "geometry",
-                                       "geometry_step", "all"),
+                                       "geometry_step", "sharded", "multicard", "all"),
                     default="all")
     ap.add_argument("--variants", default=None,
                     help="--part designs: comma-separated names of DESIGNS (default: all)")
@@ -808,6 +972,10 @@ def main() -> int:
         part_geometry(dev)
     if args.part == "geometry_step":
         part_geometry_step(dev)
+    if args.part == "sharded":
+        part_sharded(dev)
+    if args.part == "multicard":
+        part_multicard(dev)
     print("smi", smi(), flush=True)
     return 0
 

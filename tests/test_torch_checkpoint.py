@@ -100,6 +100,29 @@ def test_fingerprint_matches_jax(dtypes):
         assert invert_fingerprint(ts, CFG, *args) == jax_ck.invert_fingerprint(js, JCFG, *args)
 
 
+@pytest.mark.parametrize("mesh_shape", [(4, 2), None], ids=["4x2", "one_device"])
+def test_invert_fingerprint_hashes_the_mesh_as_jax(mesh_shape):
+    js, ts = pt.get_scene("box", 16, 12), tp.get_scene("box", 16, 12)
+    args = (("albedo", "emission"), 1e-2, 1 << 17, 1)
+    got = invert_fingerprint(ts, CFG, *args, mesh_shape=mesh_shape)
+    assert got == jax_ck.invert_fingerprint(js, JCFG, *args, mesh_shape=mesh_shape)
+    assert (got == invert_fingerprint(ts, CFG, *args)) == (mesh_shape is None)
+
+
+def test_one_device_checkpoint_is_refused_under_a_mesh(tmp_path):
+    """A checkpoint of ``cli invert`` on one device does not resume under
+    ``--mesh 2x2``: the shards add the sums in another order."""
+    from cpu_path_tracing_tpu_torch import cli
+
+    ck = str(tmp_path / "inv.npz")
+    argv = ["invert", "--scene", "box", "--width", "8", "--height", "6", "--spp", "2",
+            "--max-depth", "6", "--device", "cpu", "--checkpoint", ck]
+    assert cli.main([*argv, "--steps", "1"]) == 0
+    with pytest.raises(ValueError, match="different"):
+        cli.main([*argv, "--steps", "2", "--mesh", "2x2"])
+    assert cli.main([*argv, "--steps", "2"]) == 0  # the same command without it resumes
+
+
 def test_progress_callback(tmp_path):
     scene = tp.get_scene("box", CFG.width, CFG.height)
     seen = []

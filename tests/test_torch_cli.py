@@ -18,7 +18,9 @@
   image byte for byte, and a failed run resumes to it), ``invert
   --checkpoint`` (a resumed run ends where the uninterrupted one does,
   bitwise), ``--debug-nans``, and ``bench --suite`` on a shrunk matrix.
-  The flags of ``parallel/`` fail naming their ROADMAP item.
+  The flags of ``parallel/`` parse as the JAX CLI's do (they run in
+  tests/test_torch_parallel.py and tests/test_torch_distributed.py); only
+  ``bench --ring`` is left unported.
 """
 
 import json
@@ -230,8 +232,16 @@ def test_debug_nans_flag(tmp_path):
     ["bench", "--scaling"], ["bench", "--ring", "8"],
 ])
 def test_unported_flags_name_their_roadmap_item(argv):
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main([*argv, "--device", "cpu"])
+    """Only ``--ring`` is left unported (the port has no result ring); the
+    flags of ``parallel/`` parse to what the JAX CLI gives them."""
+    if "--ring" in argv:
+        with pytest.raises(SystemExit, match="not ported"):
+            cli.main([*argv, "--device", "cpu"])
+        return
+    want = {"mesh": "2x1", "num_processes": 2, "coordinator": "localhost:1234",
+            "shard_dir": "x", "scaling": True}
+    flag = argv[1].lstrip("-").replace("-", "_")
+    assert getattr(cli._parser().parse_args(argv), flag) == want[flag]
 
 
 def test_bench_suite(tmp_path, capsys, monkeypatch):

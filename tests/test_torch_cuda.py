@@ -550,3 +550,44 @@ def test_nan_guard_keeps_the_kernels_on_the_card(cuda):
     with pytest.raises(FloatingPointError):
         with debug_context(nans=True):
             render.render_cells_range(scene, cfg, ids, 0, 2)
+
+
+def test_tiles_mesh_render_is_the_one_pass_image_on_the_card(cuda):
+    """A 4x1 mesh on one card: 4 launches of the forward kernel, the image
+    bitwise equal to render_image's one pass."""
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+    from cpu_path_tracing_tpu_torch.parallel.render import render_image_sharded
+
+    cfg = tp.RenderConfig(width=256, height=192, spp=8, max_depth=100)
+    scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(cuda)
+    ref = tp.render_image(scene, cfg)
+    k2 = mk.persistent_render.launches
+    img = render_image_sharded(scene, cfg, make_mesh(4, 1, [cuda] * 4))
+    assert mk.persistent_render.launches - k2 == 4
+    assert img.device.type == "cuda" and torch.equal(img, ref)
+
+
+def test_sharded_accum_step_gradients_match_one_device_on_the_card(cuda):
+    """One 2x2 sharded loss-and-gradient on one card against the one-device
+    one: both the forward and the replay kernel, 4 launches each a chunk;
+    float32 sums re-associated, so the loss within 1e-5 relative and each
+    leaf within 1e-5 of its largest |gradient|."""
+    from cpu_path_tracing_tpu_torch import grad
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = tp.RenderConfig(width=64, height=64, spp=8, max_depth=100)
+    scene = tp.get_scene("box", cfg.width, cfg.height).to(cuda)
+    target = grad.render_target(scene, cfg)
+    params = {k: v + 0.02 for k, v in grad.split_params(scene, ("albedo", "emission")).items()}
+    loss, g = grad.make_accum_loss_grad(scene, cfg, cell_chunk=4096)(params, target)
+    k2, k3 = mk.persistent_render.launches, rk.replay_persistent.launches
+    sharded = grad.make_sharded_accum_loss_grad(make_mesh(2, 2, [cuda] * 4), scene, cfg,
+                                                cell_chunk=4096)
+    loss2, g2 = sharded(params, target)
+    chunks = -(-cfg.num_cells // 4096)
+    assert mk.persistent_render.launches - k2 == 4 * chunks
+    assert rk.replay_persistent.launches - k3 == 4 * chunks
+    assert abs(float(loss2) - float(loss)) <= 1e-5 * float(loss)
+    for k in g:
+        assert g2[k].device.type == "cuda"
+        assert float((g2[k] - g[k]).abs().max()) <= 1e-5 * float(g[k].abs().max()), k

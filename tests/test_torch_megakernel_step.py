@@ -261,8 +261,19 @@ def test_cli_bench_prints_one_report(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--scaling"], ["--ring", "8"]])
-def test_cli_bench_unported_options_raise(flag):
-    # --suite is ported (tests/test_torch_cli.py::test_bench_suite); what
-    # parallel/ serves still fails naming its ROADMAP item.
-    with pytest.raises(SystemExit, match="not ported.*Queue 1: parallel/"):
-        cli.main(["bench", "--width", "8", "--height", "6", "--device", "cpu", *flag])
+def test_cli_bench_unported_options_raise(flag, capsys):
+    # --suite (tests/test_torch_cli.py::test_bench_suite) and what parallel/
+    # serves are ported: --scaling prints a row a mesh size, and bench takes
+    # --mesh as the JAX bench does (the per-step render is timed).  Only the
+    # result ring is not ported.
+    argv = ["bench", "--width", "8", "--height", "6", "--device", "cpu", *flag]
+    if flag[0] == "--ring":
+        with pytest.raises(SystemExit, match="not ported: the port has no result ring"):
+            cli.main(argv)
+        return
+    assert cli.main(argv) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    if flag[0] == "--scaling":
+        assert [r["devices"] for r in lines] == [1] and lines[0]["speedup"] == 1.0
+    else:
+        assert len(lines) == 1 and lines[0]["camera_rays"] == 8 * 6 * 4
