@@ -95,31 +95,49 @@ script exits non-zero.
    control), the stream kernel's GB/s beside ``torch.mul`` on the same
    tensors.  Every rate finite and positive, no share above 100%.
 
-14. geometry_grad: the geometry and camera backward (the scan VJP, every
-   field of ``grad.OPTIMIZABLE``, the camera's eight leaves each) on the
-   card against the CPU's, float64, simple and box at 64x48, 2 spp,
-   max_depth 100: within 1e-9 of each field's largest magnitude, box's p0
-   and radius gradients exactly 0.  Float32 (simple): two backward passes
+14. geometry_replay_vs_plain: the geometry replay kernel's ``[4N+14]``
+   partials (p0, radius, camera) against its plain version (the same
+   float32 decisions, float64 adjoints) on the card, for every scene of at
+   most 40 spheres at 64x48, 2 spp, max_depth 8 and 100, with a seeded
+   normal cotangent: segments, swept paths and swept bounces equal, each
+   block within 1e-4 of its largest magnitude + 1e-7, two launches bitwise
+   equal.  Then two regenerating launches on simple 400x400 at nonzero
+   cell_start and sample_start (one past the last cell), and the scenes of
+   more than 40 spheres on the 'scan' route (random_spheres: a p0, radius
+   and camera step on the card with no geometry replay launch).
+15. geometry_grad: the scan VJP (the 'scan' route) on the card against the
+   CPU's, float64, simple and box at 64x48, 2 spp, max_depth 100, every
+   field of ``grad.OPTIMIZABLE`` (the camera's eight leaves each): within
+   1e-9 of each field's largest magnitude, box's p0 and radius gradients
+   exactly 0.  Float32 (simple, ``replay=False``): two backward passes
    bitwise equal and finite, and the backward's recomputed radiance (the
-   batch route) against the forward kernel's per-item radiance, its
-   bitwise share reported and tier 1 required.  Each record carries the
-   seconds its CPU and card parts took.
-15. geometry_path: ``cli invert --scene simple --width 400 --height 400
-   --total-spp 4 --max-depth 100 --fields p0,radius,albedo,camera --steps
-   3`` on the card by default (4 total spp stands in for the inverse
-   config's 64): steps/s, the loss each step (finite), the forward kernel's
-   launches (5 a step and 5 for the target), no replay launch, peak device
-   memory; then one more step under ``torch.profiler``: the card's busy
-   share, and the seconds of the command and of the profiled step.
-16. replay_route: the step's albedo and emission gradients on the card
+   batch route) against the forward kernel's per-item radiance by tier 1.
+   Each record carries the seconds its CPU and card parts took.
+16. geometry_path: ``cli invert --scene simple --width 400 --height 400
+   --total-spp 64 --max-depth 100 --fields p0,radius,albedo,camera --steps
+   3`` on the card by default, uncut: the 'geometry' route, 5 forward, 5
+   replay and 5 geometry replay launches a step (and 5 forward for the
+   target), no scan VJP and no ``torch.utils.checkpoint`` recompute, the
+   loss each step (finite), steps/s, peak device memory; the same step as
+   the CLI builds it, 3 CUDA-event-timed steps after a warm-up and one
+   under ``torch.profiler`` (busy share, launches); then the geometry
+   replay kernel on the step's first chunk with its own cotangent: its ms
+   (1 warm-up, median of 3), its plain version's, the block limits, counts
+   equal and two launches bitwise equal.
+17. geometry_path_scan: ``cli invert --scene simple --width 200 --height
+   200 --total-spp 4 --max-depth 100 --fields p0,radius,albedo,camera
+   --steps 2 --no-replay-backward`` (cut from the full width: its eager
+   launches): the 'scan' route, no replay or geometry replay launch, the
+   scan VJP once a chunk, losses finite, seconds and steps/s.
+18. replay_route: the step's albedo and emission gradients on the card
    for scenes the replay kernel does not take (random_spheres, 100
    spheres, float32: forward kernel and plain replay; box in float64 and
    with tent jitter: plain wavefront loop and plain replay), no replay
    kernel launch, against the CPU's: within 1e-9 (float64) or tier 1
-   (float32); the seconds of the CPU and card parts.  Then the three
+   (float32); the seconds of the CPU and card parts.  Then the five
    phases' seconds in all (``geometry_phases``).
 
-17-23. The single-process host runtime and the suite, each through the CLI
+19-25. The single-process host runtime and the suite, each through the CLI
    with the kernels' launch counts set to 0 just before it and read just
    after, each record with its seconds (``host_runtime_phases``: their
    sum).  tiled_path: ``cli render`` of disco 1024x768, 32 total spp, in 6
@@ -154,7 +172,7 @@ script exits non-zero.
    those items and the kernel's time on a launch of the first 131,072.
    bench_headline: ``scripts/torch_bench.py``'s JSON line.
 
-24-28. The mesh and multi-process paths on the one card, each record with
+26-30. The mesh and multi-process paths on the one card, each record with
    nvidia-smi's name and power limit, the kernels' launch counts set to 0
    just before each path and read just after (``parallel_phases``: their
    seconds).  sharded_render: disco 1024x768, 32 total spp, max_depth 100
@@ -180,14 +198,16 @@ script exits non-zero.
    ``dryrun_multichip(4)`` on ``[cuda:0] * 4`` (12 forward launches, no
    replay).  bench_scaling: ``cli bench --scaling`` on disco, one row.
 
-Then a ``{"kernels": [...]}`` line (five kernels, each with its launches on
+Then a ``{"kernels": [...]}`` line (six kernels, each with its launches on
 its path, its time, its plain version's, its bound, the least time the card
 could take for the same work at its published peaks, which side binds, the
 probe-model time of the render kernels, and a library call's time where one
 PyTorch call computes the same; the whole-render kernel also its launches on
 the geometry path, on each host-runtime path and on each mesh or multi-process path
-(``launches_parallel``); the whole-render and replay kernels also
-with their registers, the threads resident an SM and the launch's occupancy;
+(``launches_parallel``); the whole-render, replay and geometry replay
+kernels also with their registers, the threads resident an SM and the
+launch's occupancy, the geometry replay's bound from the forward's
+operations, the sweeps' and its record's bytes (``record_gb``);
 the per-step kernel's bound is the
 render's, equal to the whole-render kernel's, with the floor of the
 lane-state traffic its design moves beside it as ``state_floor_ms``), the
@@ -269,13 +289,14 @@ def load_script(name: str):
     return mod
 
 
-def replay_deviation(got, ref, n_spheres: int):
-    """Per block of the replay partials: worst |got - ref| and its limit,
+def replay_deviation(got, ref, n_spheres: int, blocks=None):
+    """Per block of the replay partials (``blocks``: the replay kernel's by
+    default, or the geometry replay's): worst |got - ref| and its limit,
     1e-4 * max|ref block| + 1e-7.  Returns (record, ok, worst |got - ref|)."""
     from cpu_path_tracing_tpu_torch.ops.replay import partial_blocks
 
     rec, ok, worst = {}, True, 0.0
-    for name, sl in partial_blocks(n_spheres).items():
+    for name, sl in (blocks or partial_blocks)(n_spheres).items():
         g, r = got[sl].double().cpu(), ref[sl].double().cpu()
         err, lim = float((g - r).abs().max()), 1e-4 * float(r.abs().max()) + 1e-7
         rec[name] = [err, lim]
@@ -314,7 +335,7 @@ def cuda_time_ms(fn, runs: int = 3):
 
 
 def host_runtime(dev, k2: dict, k3: dict) -> None:
-    """Phases 17-23: the single-process host runtime and the suite, each
+    """Phases 19-25: the single-process host runtime and the suite, each
     driven through the CLI (``cli.main``) with the kernels' launch counts
     set to 0 just before and read just after; comparisons run outside those
     windows.  Files go to a temporary directory, removed at the end."""
@@ -375,7 +396,7 @@ def host_runtime(dev, k2: dict, k3: dict) -> None:
     def image_of(sums, spp):
         return finalize_image(torch.from_numpy(sums).to(dev) / spp, cfg)
 
-    # ---- 17. tiled_path ----
+    # ---- 19. tiled_path ----
     t_phase = time.perf_counter()
     tile = cfg.num_cells // 6
     tiles, tiles2 = os.path.join(work, "tiles.npz"), os.path.join(work, "tiles2.npz")
@@ -431,7 +452,7 @@ def host_runtime(dev, k2: dict, k3: dict) -> None:
     check(rec["ok"], "the tiled render: launches, bits or the resume")
     k2["launches_host_runtime"]["tiled_path"] = k2_tiled
 
-    # ---- 18. progressive_path ----
+    # ---- 20. progressive_path ----
     t_phase = time.perf_counter()
     prog, prog2 = os.path.join(work, "progress.npz"), os.path.join(work, "progress2.npz")
     preview = os.path.join(work, "preview.png")
@@ -470,7 +491,7 @@ def host_runtime(dev, k2: dict, k3: dict) -> None:
     check(rec["ok"], "the progressive render: launches, bits or the preview")
     k2["launches_host_runtime"]["progressive_path"] = k2_first + k2_resumed
 
-    # ---- 19. invert_resume ----
+    # ---- 21. invert_resume ----
     t_phase = time.perf_counter()
     icfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
     box = tp.get_scene("box", icfg.width, icfg.height).to(dev)
@@ -553,7 +574,7 @@ def host_runtime(dev, k2: dict, k3: dict) -> None:
     k2["launches_host_runtime"]["invert_resume"] = k2_api + k2_cli
     k3["launches_host_runtime"]["invert_resume"] = k3_api + k3_cli
 
-    # ---- 20. scene_file ----
+    # ---- 22. scene_file ----
     t_phase = time.perf_counter()
     spath = os.path.join(work, "disco.json")
     save_scene(spath, tp.get_scene("box_mirror", cfg.width, cfg.height))
@@ -572,7 +593,7 @@ def host_runtime(dev, k2: dict, k3: dict) -> None:
     check(rec["ok"], "the scene file does not render the registered scene")
     k2["launches_host_runtime"]["scene_file"] = k2_sf
 
-    # ---- 21. debug_nans ----
+    # ---- 23. debug_nans ----
     t_phase = time.perf_counter()
     zero()
     rc, _, _ = run_cli(["render", *disco, "-o", out_png, "--debug-nans"])
@@ -606,7 +627,7 @@ def host_runtime(dev, k2: dict, k3: dict) -> None:
     k2["launches_host_runtime"]["debug_nans"] = k2_guarded + k2_inv + k2_nan
     k3["launches_host_runtime"]["debug_nans"] = k3_inv
 
-    # ---- 22. bench_suite ----
+    # ---- 24. bench_suite ----
     t_phase = time.perf_counter()
     suite_md = os.path.join(work, "suite.md")
     zero()
@@ -683,7 +704,7 @@ def host_runtime(dev, k2: dict, k3: dict) -> None:
     k3["launches_host_runtime"]["bench_suite"] = k3_suite
     tmp.cleanup()
 
-    # ---- 23. bench_headline ----
+    # ---- 25. bench_headline ----
     t_phase = time.perf_counter()
     tb = load_script("torch_bench")
     zero()
@@ -729,8 +750,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
-    """Phases 24-28: the mesh and multi-process paths (``parallel/``,
+def parallel_paths(dev, k2: dict, k3: dict, k7: dict, smi: str) -> None:
+    """Phases 26-30: the mesh and multi-process paths (``parallel/``,
     ``grad.make_sharded_*``, ``entry.py``) on the one card, each with the
     kernels' launch counts set to 0 just before it is driven and read just
     after.  One card shows the plumbing, not scaling: a mesh's entries are
@@ -746,6 +767,7 @@ def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
     import cpu_path_tracing_tpu_torch as tp
     from cpu_path_tracing_tpu_torch import cli, grad
     from cpu_path_tracing_tpu_torch.entry import dryrun_multichip, entry
+    from cpu_path_tracing_tpu_torch.ops.kernels import geometry_replay as gk
     from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
     from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
     from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
@@ -753,6 +775,7 @@ def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
 
     def zero():
         mk.persistent_render.launches = rk.replay_persistent.launches = 0
+        gk.geometry_replay.launches = 0
 
     def counts():
         torch.cuda.synchronize()
@@ -772,7 +795,7 @@ def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
     scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(dev)
     cards = [dev] * 4
 
-    # ---- 24. sharded_render ----
+    # ---- 26. sharded_render ----
     t_phase = time.perf_counter()
     ref = tp.render_image(scene, cfg)
     one_ms, _ = cuda_time_ms(lambda: tp.render_image(scene, cfg))
@@ -799,7 +822,7 @@ def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
     emit(rec)
     check(rec["ok"], "the sharded render: launches, bits or the 1e-6 limit")
 
-    # ---- 25. multiprocess_render ----
+    # ---- 27. multiprocess_render ----
     t_phase = time.perf_counter()
     one_png = os.path.join(work, "one.png")
     rc, _, _ = run_cli(["render", *disco, "-o", one_png])
@@ -857,7 +880,7 @@ def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
     k2["launches_parallel"]["multiprocess_render"] = sum(
         o["k2_launches"] for r in runs.values() for o in r["ranks"].values())
 
-    # ---- 26. sharded_train_path ----
+    # ---- 28. sharded_train_path ----
     t_phase = time.perf_counter()
     icfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
     box = tp.get_scene("box", icfg.width, icfg.height).to(dev)
@@ -923,7 +946,7 @@ def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
     k2["launches_parallel"]["sharded_train_path"] = k2_step + k2_timed + k2_cli
     k3["launches_parallel"]["sharded_train_path"] = k3_step + k3_timed + k3_cli
 
-    # ---- 27. entry_twin ----
+    # ---- 29. entry_twin ----
     t_phase = time.perf_counter()
     zero()
     fn, args = entry()
@@ -932,21 +955,28 @@ def parallel_paths(dev, k2: dict, k3: dict, smi: str) -> None:
     zero()
     dry = dryrun_multichip(4, cards)
     k2_dry, k3_dry = counts()
+    k7_dry = gk.geometry_replay.launches
     rec = {"phase": "entry_twin", "nvidia_smi": smi, "entry_shape": list(out.shape),
            "entry_device": str(out.device), "entry_mean": float(out.mean()),
            "k2_launches_entry": k2_entry, "dryrun_multichip_4": dry,
-           "k2_launches_dryrun": k2_dry, "k3_launches_dryrun": k3_dry}
+           "k2_launches_dryrun": k2_dry, "k3_launches_dryrun": k3_dry,
+           "k7_launches_dryrun": k7_dry}
     # The dryrun's forward kernel: the accumulation step's 2 chunks x 4
-    # shards and the kernel route's 4 shards; its backward is the scan VJP.
+    # shards and the kernel route's 4 shards; the accumulation step's
+    # backward (p0, radius, albedo) is the 'geometry' route: the geometry
+    # replay kernel and the replay kernel once a shard and chunk.
     rec["ok"] = (tuple(out.shape) == (256 * 192 * 4, 3) and out.device.type == "cuda"
                  and bool(torch.isfinite(out).all()) and k2_entry == 1
-                 and dry["mesh"] == {"tiles": 2, "samples": 2} and k2_dry == 12 and k3_dry == 0)
+                 and dry["mesh"] == {"tiles": 2, "samples": 2} and k2_dry == 12 and k3_dry == 8
+                 and k7_dry == 8)
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
     check(rec["ok"], "entry() or dryrun_multichip(4) on the card")
     k2["launches_parallel"]["entry_twin"] = k2_entry + k2_dry
+    k3["launches_parallel"]["entry_twin"] = k3_dry
+    k7["launches_parallel"] = {"entry_twin": k7_dry}
 
-    # ---- 28. bench_scaling ----
+    # ---- 30. bench_scaling ----
     t_phase = time.perf_counter()
     table = os.path.join(work, "scaling.md")
     zero()
@@ -1032,10 +1062,13 @@ def main() -> int:
     check(set(by_name) >= {"persistent_render_kernel<u32>", "persistent_render_kernel<i64>",
                            "megakernel_step_kernel", "replay_kernel<u32,8>",
                            "replay_kernel<u32,16>", "replay_kernel<u32,40>",
+                           "geometry_replay_kernel<u32,8>", "geometry_replay_kernel<u32,16>",
+                           "geometry_replay_kernel<u32,40>",
                            "probe_stream_kernel", "probe_op_chain_kernel<0,8>"},
           "the build log lacks a kernel")
     spilled = [k for k, e in by_name.items()
-               if k.startswith(("persistent_render_kernel", "replay_kernel"))
+               if k.startswith(("persistent_render_kernel", "replay_kernel",
+                                "geometry_replay_kernel"))
                and not k.endswith(",40>") and ", 0 bytes spill stores" not in e["stack_spills"]]
     check(not spilled, f"ptxas spilled registers in {spilled}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1685,8 +1718,11 @@ def main() -> int:
           "max_abs_err": k6_err, "ms": res["ms"]["stream_scale"],
           "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
           "library_ms": library_ms}
-    # ---- 14. the geometry and camera backward on the card ----
+    # ---- 14. the geometry replay kernel vs its plain version ----
     from cpu_path_tracing_tpu_torch.ops import replay as replay_ops
+    from cpu_path_tracing_tpu_torch.ops.geometry_replay import geometry_partial_blocks
+    from cpu_path_tracing_tpu_torch.ops.integrator import checkpoint as checkpoint_fn
+    from cpu_path_tracing_tpu_torch.ops.kernels import geometry_replay as gk
 
     def flat(g):
         return dict(zip(*grad.flatten_params(g)))
@@ -1706,7 +1742,74 @@ def main() -> int:
             worst = max(worst, max(float((got[n] - ref[n]).abs().max()) for n in names) / scale)
         return worst
 
+    def geometry_vs_plain(table, cam, dyn, ct, **kw):
+        """K7 twice and its plain version on one launch's inputs."""
+        got, st = gk.geometry_replay(table, cam, dyn, ct, **kw)
+        again, _ = gk.geometry_replay(table, cam, dyn, ct, **kw)
+        ref, ref_st = gk.geometry_replay_reference(table, cam, dyn, ct, **kw)
+        dev_rec, blocks_ok, err = replay_deviation(got, ref, table.shape[0],
+                                                   geometry_partial_blocks)
+        counts = {k: [int(st[k]), ref_st[k]] for k in ("segments", "missed", "sweep_bounces")}
+        ok = blocks_ok and all(a == b for a, b in counts.values())
+        return {"counts": counts, "blocks": dev_rec, "bitwise_repeat": bool(torch.equal(got, again)),
+                "lanes": st["lanes"]}, ok and bool(torch.equal(got, again)), err
+
     t_geo = time.perf_counter()
+    geo_fields = ("p0", "radius", "camera")
+    k7_worst = 0.0
+    for name in tp.scene_names():
+        scene = tp.get_scene(name, W, H)
+        cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=8)
+        rec = {"phase": "geometry_replay_vs_plain", "scene": name, "spheres": scene.num_spheres}
+        if scene.num_spheres > rk.MAX_REPLAY_SPHERES:
+            card_scene = scene.to(dev)
+            rec["route"] = grad.backward_route(card_scene, cfg, geo_fields)
+            ok = rec["route"] == "scan"
+            if name == "random_spheres":  # the step runs the scan VJP on the card
+                gk.geometry_replay.launches = 0
+                _, g = leaf_grads(card_scene, cfg, geo_fields, sample_chunk=1)
+                rec["k7_launches"] = gk.geometry_replay.launches
+                rec["finite"] = all(bool(torch.isfinite(v).all()) for v in g.values())
+                ok = ok and rec["k7_launches"] == 0 and rec["finite"]
+            rec["ok"] = ok
+            emit(rec)
+            check(ok, f"{name} ({scene.num_spheres} spheres) did not take the scan VJP")
+            continue
+        table, cam = mk.pack_scene(scene).to(dev), mk.pack_camera(scene).to(dev)
+        ct = torch.from_numpy(np.random.default_rng(13).normal(0, 1, (cfg.num_cells, 3))
+                              .astype(np.float32)).to(dev)
+        ok = True
+        for depth in (8, 100):
+            kw = dict(cfg=cfg.replace(max_depth=depth), n_cells=cfg.num_cells,
+                      n_items=SPP * cfg.num_cells, ior=scene.ior)
+            rec[f"d{depth}"], ok_d, err = geometry_vs_plain(table, cam, (0, 0), ct, **kw)
+            k7_worst = max(k7_worst, err)
+            ok = ok and ok_d
+        rec["ok"] = ok
+        emit(rec)
+        check(ok, f"geometry replay kernel vs plain version on {name}")
+
+    cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    scene = tp.get_scene("simple", cfg.width, cfg.height).to(dev)
+    table, cam = mk.pack_scene(scene), mk.pack_camera(scene)
+    total = cfg.num_cells
+    for how, cell_start, n_cells, sample_start in (("mid_image", 100_003, 150_001, 5),
+                                                   ("past_last_cell", total - 50_000, 100_000, 6)):
+        ct = torch.from_numpy(np.random.default_rng(14).normal(0, 1, (n_cells, 3))
+                              .astype(np.float32)).to(dev)
+        kw = dict(cfg=cfg, n_cells=n_cells, n_items=2 * n_cells, ior=scene.ior)
+        launch, ok, err = geometry_vs_plain(table, cam, (cell_start, sample_start), ct, **kw)
+        k7_worst = max(k7_worst, err)
+        rec = {"phase": "geometry_replay_vs_plain", "case": how, "scene": "simple 400x400",
+               "cell_start": cell_start, "n_cells": n_cells, "sample_start": sample_start,
+               "n_items": kw["n_items"], "items_per_lane": kw["n_items"] / launch["lanes"], **launch}
+        rec["ok"] = ok and launch["lanes"] < kw["n_items"]
+        emit(rec)
+        check(rec["ok"], f"regenerating geometry replay launch ({how}) against the plain version")
+    emit({"phase": "geometry_replay_vs_plain_seconds", "seconds": time.perf_counter() - t_geo})
+
+    # ---- 15. the scan VJP on the card ----
+    t_scan = time.perf_counter()
     cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=100)
     for name in ("simple", "box"):
         t0 = time.perf_counter()
@@ -1728,14 +1831,15 @@ def main() -> int:
         emit(rec)
         check(ok, f"float64 geometry gradients on the card against the CPU's ({name})")
 
-    # Float32: two backward passes of one step bitwise equal, and the
-    # backward's recomputed primal against the forward kernel's per-item
-    # radiance.
+    # Float32 on the 'scan' route (replay off): two backward passes of one
+    # step bitwise equal, and the backward's recomputed primal against the
+    # forward kernel's per-item radiance.
     t0 = time.perf_counter()
     scene = tp.get_scene("simple", W, H).to(dev)
     fields = ("p0", "radius", "albedo", "camera")
     target = grad.render_target(scene, cfg) * 0.9
-    loss_grad = grad.make_accum_loss_grad(scene, cfg, sample_chunk=1)
+    loss_grad = grad.make_accum_loss_grad(scene, cfg, sample_chunk=1, replay=False)
+    gk.geometry_replay.launches = 0
     g1, g2 = (flat(loss_grad(grad.split_params(scene, fields), target)[1]) for _ in range(2))
     repeat = all(torch.equal(g1[n], g2[n]) for n in g1)
     finite = all(bool(torch.isfinite(v).all()) for v in g1.values())
@@ -1748,67 +1852,179 @@ def main() -> int:
                             for s in range(SPP)], dim=1)
     prim = tier1(recomputed.cpu().numpy(), items.cpu().numpy())
     rec = {"phase": "geometry_grad", "scene": "simple", "dtype": "float32", "fields": fields,
+           "route": loss_grad.span.route(fields), "k7_launches": gk.geometry_replay.launches,
            "bwd_cfg": {"loop": bwd_cfg.loop, "remat": bwd_cfg.remat,
                        "compact_schedule": bwd_cfg.compact_schedule},
            "bitwise_repeat": repeat, "finite": finite,
            "recomputed_primal_vs_forward_kernel": prim,
            "card_seconds": time.perf_counter() - t0}
-    rec["ok"] = repeat and finite and prim["ok"]
+    rec["ok"] = (repeat and finite and prim["ok"] and rec["route"] == "scan"
+                 and rec["k7_launches"] == 0)
     emit(rec)
     check(rec["ok"], "float32 geometry gradients: repeat, finiteness, or the recomputed primal")
+    emit({"phase": "geometry_grad_seconds", "seconds": time.perf_counter() - t_scan})
 
-    # ---- 15. the geometry path at full width: cli invert ----
+    # ---- 16. the geometry path at full width: cli invert on the 'geometry' route ----
+    def zero_all():
+        mk.persistent_render.launches = rk.replay_persistent.launches = 0
+        gk.geometry_replay.launches = 0
+
+    def counted_invert(argv):
+        """``cli.main(argv)`` with its stdout captured, counting the scan
+        VJP's sample chunks and its checkpointed bounces.  Returns (JSON
+        lines, seconds, {"scan_vjp", "checkpoint"})."""
+        from cpu_path_tracing_tpu_torch.ops import integrator as integ
+
+        calls = {"scan_vjp": 0, "checkpoint": 0}
+        scan_vjp = grad._scan_vjp
+
+        def counted_scan(*a, **k):
+            calls["scan_vjp"] += 1
+            return scan_vjp(*a, **k)
+
+        def counted_checkpoint(*a, **k):
+            calls["checkpoint"] += 1
+            return checkpoint_fn(*a, **k)
+
+        grad._scan_vjp, integ.checkpoint = counted_scan, counted_checkpoint
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                check(cli.main(argv) == 0, f"cli {' '.join(argv)} failed")
+        finally:
+            grad._scan_vjp, integ.checkpoint = scan_vjp, checkpoint_fn
+        seconds = time.perf_counter() - t0
+        return [json.loads(ln) for ln in buf.getvalue().strip().splitlines()], seconds, calls
+
+    t_path = time.perf_counter()
     geo_argv = ["invert", "--scene", "simple", "--width", "400", "--height", "400", "--total-spp",
-                "4", "--max-depth", "100", "--fields", "p0,radius,albedo,camera", "--steps", "3"]
-    mk.persistent_render.launches = rk.replay_persistent.launches = 0
+                "64", "--max-depth", "100", "--fields", "p0,radius,albedo,camera", "--steps", "3"]
+    zero_all()
     torch.cuda.reset_peak_memory_stats()
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        check(cli.main(geo_argv) == 0, "cli invert (geometry) failed")
-    invert_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    k2_geo, k3_geo = mk.persistent_render.launches, rk.replay_persistent.launches
-    lines = [json.loads(ln) for ln in buf.getvalue().strip().splitlines()]
-    losses = [r["loss"] for r in lines]
-    # One more step of the same configuration under the profiler.
-    cfg = tp.RenderConfig(width=400, height=400, spp=1, max_depth=100)
-    scene = tp.get_scene("simple", cfg.width, cfg.height).to(dev)
-    target = grad.render_target(scene, cfg, 1 << 17)
-    true = grad.split_params(scene, ("p0", "radius", "albedo", "camera"))
-    params = cli.perturbed_params(true, 0, 0.05)
-    step = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=1 << 17, sample_chunk=1)
-    params, _ = step(params, target)
+    lines, invert_s, calls = counted_invert(geo_argv)
     torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k2_geo, k3_geo, k7_geo = (mk.persistent_render.launches, rk.replay_persistent.launches,
+                              gk.geometry_replay.launches)
+    losses = [r["loss"] for r in lines]
+    # The same step, built as cli invert builds it: 3 CUDA-event-timed steps
+    # after a warm-up, then one under the profiler.
+    cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
+    scene = tp.get_scene("simple", cfg.width, cfg.height).to(dev)
+    chunk = 1 << 17
+    target = grad.render_target(scene, cfg, chunk)
+    true = grad.split_params(scene, fields)
+    params = cli.perturbed_params(true, 0, 0.05)
+    step = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=chunk, sample_chunk=1)
+    params, _ = step(params, target)
+    step_ms = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, _ = step(params, target)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         step(params, target)
         end.record()
         torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end)
-    profiled_s = time.perf_counter() - t0
+    prof_ms = start.elapsed_time(end)
     by_kernel = profiling.device_time_by_kernel(prof)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
-    rec = {"phase": "geometry_path", "command": "python -m cpu_path_tracing_tpu_torch.cli "
-           + " ".join(geo_argv),
-           "cut": "4 total spp stands in for the inverse config's 64; 131,072-cell chunks",
-           "seconds": invert_s, "steps_per_s": lines[-1]["steps_per_s"], "losses": losses,
-           "mean_abs_err": lines[-1]["mean_abs_err"], "k2_launches": k2_geo,
-           "k2_launches_per_step": (k2_geo - 5) / 3, "k3_launches": k3_geo,
-           "peak_memory_gb": peak_gb, "profiled_step_ms": step_ms,
-           "profiled_device_ms": busy_ms, "busy_share": busy_ms / step_ms,
-           "profiled_launches": sum(n for _, n in by_kernel.values()),
-           "profiled_seconds": profiled_s}
-    rec["ok"] = (len(losses) == 3 and all(np.isfinite(losses)) and k3_geo == 0
-                 and k2_geo == 5 + 3 * 5)
-    emit(rec)
-    check(rec["ok"], "the geometry path: losses, or the kernels it launched")
-    k2["launches_geometry_path"] = k2_geo
+    k7_prof = [v for k, v in by_kernel.items() if "geometry_replay" in k]
     del prof
 
-    # ---- 16. the plain replay on the card for scenes the replay kernel does not take ----
+    # K7 alone on the step's first chunk, with the step's own cotangent.
+    sc = grad.merge_params(scene, params)
+    ids = torch.arange(chunk, device=dev)
+    ct = (2.0 * (render.render_cells_range(sc, cfg, ids, 0, cfg.spp) / cfg.spp - target[:chunk])
+          / cfg.spp).contiguous()
+    table, cam = mk.pack_scene(sc), mk.pack_camera(sc)
+    kw = dict(cfg=cfg, n_cells=chunk, n_items=cfg.spp * chunk, ior=sc.ior)
+    k7_ms, (got, st) = cuda_time_ms(lambda: gk.geometry_replay(table, cam, (0, 0), ct, **kw))
+    again, _ = gk.geometry_replay(table, cam, (0, 0), ct, **kw)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref, ref_st = gk.geometry_replay_reference(table, cam, (0, 0), ct, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    k7_plain_ms = start.elapsed_time(end)
+    dev_rec, blocks_ok, err = replay_deviation(got, ref, sc.num_spheres, geometry_partial_blocks)
+    k7_worst = max(k7_worst, err)
+    chunk_counts = {k: [int(st[k]), ref_st[k]] for k in ("segments", "missed", "sweep_bounces")}
+    regs = by_name["geometry_replay_kernel<u32,8>"]
+    rec = {"phase": "geometry_path", "command": "python -m cpu_path_tracing_tpu_torch.cli "
+           + " ".join(geo_argv), "route": step.span.route(fields),
+           "seconds": invert_s, "steps_per_s": lines[-1]["steps_per_s"], "losses": losses,
+           "mean_abs_err": lines[-1]["mean_abs_err"], "k2_launches": k2_geo,
+           "k3_launches": k3_geo, "k7_launches": k7_geo,
+           "launches_per_step": {"k2": (k2_geo - 5) / 3, "k3": k3_geo / 3, "k7": k7_geo / 3},
+           "scan_vjp_calls": calls["scan_vjp"], "checkpoint_calls": calls["checkpoint"],
+           "peak_memory_gb": peak_gb, "timed_step_ms": step_ms,
+           "timed_steps_per_s": 3 / (sum(step_ms) / 1e3), "profiled_step_ms": prof_ms,
+           "profiled_device_ms": busy_ms, "busy_share": busy_ms / prof_ms,
+           "profiled_launches": sum(n for _, n in by_kernel.values()),
+           "profiled_k7": k7_prof, "k7_chunk_ms": k7_ms, "k7_chunk_plain_ms": k7_plain_ms,
+           "k7_chunk_items": kw["n_items"], "k7_chunk_counts": chunk_counts,
+           "k7_chunk_blocks": dev_rec, "k7_chunk_bitwise_repeat": bool(torch.equal(got, again)),
+           "k7_ptxas": regs, "k7_lanes": st["lanes"],
+           "seconds_in_all": time.perf_counter() - t_path}
+    rec["ok"] = (len(losses) == 3 and all(np.isfinite(losses)) and rec["route"] == "geometry"
+                 and k2_geo == 5 + 3 * 5 and k3_geo == 3 * 5 and k7_geo == 3 * 5
+                 and calls["scan_vjp"] == 0 and calls["checkpoint"] == 0 and blocks_ok
+                 and rec["k7_chunk_bitwise_repeat"]
+                 and all(a == b for a, b in chunk_counts.values()))
+    emit(rec)
+    check(rec["ok"], "the geometry path: route, losses, launches, or K7 on its chunk")
+    k2["launches_geometry_path"] = k2_geo
+    k3["launches_geometry_path"] = k3_geo
+
+    # The bound of one chunk: K2's forward operations and the sweeps this
+    # chunk needed, against the record's traffic and the inputs and rows.
+    k7_ops = roofline.geometry_ops(sc.num_spheres, int(st["segments"]), kw["n_items"],
+                                   int(st["sweep_bounces"]), int(st["missed"]))
+    k7_bytes = (roofline.geometry_record_bytes(int(st["segments"]), int(st["sweep_bounces"]))
+                + 4 * (ct.numel() + table.numel() + cam.numel() + got.numel()))
+    k7_bound, k7_by = roofline.bound_ms(k7_bytes, k7_ops.issues())
+    k7 = {"name": "geometry_replay", "route": "cuda", "source": f"{PKG}/csrc/geometry_replay.cu",
+          "replaces": "cpu_path_tracing_tpu/grad.py:153 (no pallas_call: XLA autodiff of the "
+                      "checkpointed scan)",
+          "launches": k7_geo, "max_abs_err": k7_worst, "ms": k7_ms, "plain_ms": k7_plain_ms,
+          "bound_ms": k7_bound, "bound_by": k7_by, "library_ms": None,
+          "registers": regs["registers"], "resident_threads_per_sm": st["lanes"] // sms,
+          "occupancy": int(st["segments"]) / (int(st["iters"]) * st["lanes"]),
+          "record_gb": k7_bytes / 1e9}
+
+    # ---- 17. the geometry path on the 'scan' route (--no-replay-backward) ----
+    scan_argv = ["invert", "--scene", "simple", "--width", "200", "--height", "200", "--total-spp",
+                 "4", "--max-depth", "100", "--fields", "p0,radius,albedo,camera", "--steps", "2",
+                 "--no-replay-backward"]
+    zero_all()
+    torch.cuda.reset_peak_memory_stats()
+    lines, scan_s, calls = counted_invert(scan_argv)
+    torch.cuda.synchronize()
+    rec = {"phase": "geometry_path_scan", "command": "python -m cpu_path_tracing_tpu_torch.cli "
+           + " ".join(scan_argv),
+           "cut": "200x200 at 4 total spp and 2 steps: the scan VJP's eager launches (13-30 us "
+                  "of host time each) keep the full width out of the script's time",
+           "seconds": scan_s, "steps_per_s": lines[-1]["steps_per_s"],
+           "losses": [r["loss"] for r in lines], "k2_launches": mk.persistent_render.launches,
+           "k3_launches": rk.replay_persistent.launches,
+           "k7_launches": gk.geometry_replay.launches, "scan_vjp_calls": calls["scan_vjp"],
+           "checkpoint_calls": calls["checkpoint"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    rec["ok"] = (all(np.isfinite(rec["losses"])) and len(rec["losses"]) == 2
+                 and rec["k2_launches"] == 2 + 2 * 2 and rec["k3_launches"] == 0
+                 and rec["k7_launches"] == 0 and calls["scan_vjp"] == 2 * 2
+                 and calls["checkpoint"] > 0)
+    emit(rec)
+    check(rec["ok"], "the geometry path on the scan route")
+
+    # ---- 18. the plain replay on the card for scenes the replay kernel does not take ----
     for name, dtype, jitter in (("random_spheres", torch.float32, "uniform"),
                                 ("box", torch.float64, "uniform"),
                                 ("box", torch.float32, "tent")):
@@ -1840,22 +2056,22 @@ def main() -> int:
         check(rec["ok"], f"the plain replay on the card ({name}, {dtype}, {jitter})")
     emit({"phase": "geometry_phases", "seconds": time.perf_counter() - t_geo})
 
-    # ---- 17-23. the host runtime and the benchmark suite ----
+    # ---- 19-25. the host runtime and the benchmark suite ----
     t_host = time.perf_counter()
     host_runtime(dev, k2, k3)
     emit({"phase": "host_runtime_phases", "seconds": time.perf_counter() - t_host})
 
-    # ---- 24-28. the mesh and multi-process paths ----
+    # ---- 26-30. the mesh and multi-process paths ----
     t_par = time.perf_counter()
-    parallel_paths(dev, k2, k3, smi)
+    parallel_paths(dev, k2, k3, k7, smi)
     emit({"phase": "parallel_phases", "seconds": time.perf_counter() - t_par})
 
     # Beside each render kernel's published-peak bound, its operations at
     # the rates the probe just measured.
-    for entry, ops in ((k2, k2_ops), (k3, k3_ops), (k4, k4_ops)):
+    for entry, ops in ((k2, k2_ops), (k3, k3_ops), (k4, k4_ops), (k7, k7_ops)):
         entry["probe_model_ms"] = roofline.probe_model_ms(ops, res)
 
-    emit({"kernels": [k2, k3, k4, k5, k6]})
+    emit({"kernels": [k2, k3, k4, k5, k6, k7]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

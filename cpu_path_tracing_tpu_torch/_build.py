@@ -126,6 +126,11 @@ def load(flags: tuple[str, ...] = FLAGS) -> ctypes.CDLL:
     lib.pt_replay_persistent.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
                                          vp]
     lib.pt_replay_persistent.restype = ctypes.c_int
+    lib.pt_geometry_grid.argtypes = lib.pt_replay_grid.argtypes
+    lib.pt_geometry_grid.restype = ctypes.c_int
+    lib.pt_geometry_replay.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_int,
+                                       ctypes.c_longlong, vp]
+    lib.pt_geometry_replay.restype = ctypes.c_int
     lib.pt_probe_op_chain.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_longlong,
                                       ctypes.c_int, ctypes.c_float, ctypes.c_float,
                                       ctypes.c_float, ctypes.c_uint, vp]

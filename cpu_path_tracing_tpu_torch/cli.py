@@ -71,10 +71,14 @@ p0, radius, albedo, emission, camera, background) with seeded normal noise
 and fits them back with Adam, printing one JSON line per reported step;
 with ``--checkpoint`` it saves the params and Adam's state every
 ``--save-every`` steps and resumes from them (``utils/checkpoint.py``).
-Its backward is the replay for albedo, emission and background alone
-(``--no-replay-backward`` turns it off), else the scan VJP recomputed
-``--sample-chunk`` samples at a time, with live-ray compaction unless
-``--no-compact-backward`` (``grad.make_diff_render_span``).
+Its backward takes one of ``grad.backward_route``'s three routes: the
+replay for albedo, emission and background alone; on the card, for p0,
+radius or the camera in a float32 scene of at most 40 spheres with uniform
+jitter, the geometry replay kernel (and the replay kernel for the other
+fields); else the scan VJP recomputed ``--sample-chunk`` samples at a time,
+with live-ray compaction unless ``--no-compact-backward``.
+``--no-replay-backward`` sends every field set to the scan VJP
+(``grad.make_diff_render_span``).
 """
 
 from __future__ import annotations
@@ -169,7 +173,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-compact-backward", action="store_true",
                    help="disable live-ray compaction in the scan VJP")
     p.add_argument("--no-replay-backward", action="store_true",
-                   help="use the scan VJP even when every field is a replay field")
+                   help="use the scan VJP for every field set (no replay kernel, no "
+                        "geometry replay kernel)")
     p.add_argument("--checkpoint", default=None,
                    help="params and optimizer-state checkpoint (.npz); resumes if present")
     p.add_argument("--save-every", type=int, default=0,

@@ -23,8 +23,9 @@
 // Design.  The forward kernel's loop (csrc/megakernel.cu): a persistent
 // grid, one live path per thread, a refill phase the warp's idle lanes enter
 // together (there a lane also reads its path's cotangent ct[item % n_cells],
-// 3 floats, and clears its counters), warp-owned items (item_at below).  The 7N+6
-// partials of a thread live in shared memory, laid out [k][thread] so that a
+// 3 floats, and clears its counters), warp-owned items (pt::item_at in
+// csrc/step_math.cuh).  The 7N+6 partials of a thread live in shared
+// memory, laid out [k][thread] so that a
 // warp's accesses fall in 32 banks whatever sphere each lane touches; only
 // the 2N counters stay in registers, in a compile-time bucket of N (8, 16,
 // 40).  A bounce adds to the partials of the spheres whose counter is not
@@ -47,34 +48,6 @@
 #include "step_math.cuh"
 
 namespace {
-
-// ---- a warp's own items ----
-// The items of a launch are dealt to the warps in chunks of 32 consecutive
-// items, round robin: warp w of W owns chunks w, w + W, w + 2W, ...  A warp
-// walks its chunks in order and hands the next positions to whichever of its
-// lanes are idle, so its lanes share its work; the round robin spreads every
-// part of the image over all warps (path lengths follow the image: a
-// contiguous range a warp made the warps that drew the long paths the
-// launch's tail).  Which lane runs an item is a pure function of the launch.
-// Chunks of 8 items measured 6% slower on an H100, of 128 the same.
-constexpr int kChunkLog2 = 5;
-
-// Positions warp ``warp`` of ``warps`` owns: its chunks times the chunk size
-// (the last chunk of the launch may hold fewer items: check item < n_items).
-template <typename Index>
-__device__ __forceinline__ Index owned_positions(long long n_items, long long warp,
-                                                 long long warps) {
-  const long long chunks = (n_items + (1ll << kChunkLog2) - 1) >> kChunkLog2;
-  const long long mine = warp < chunks ? (chunks - warp + warps - 1) / warps : 0;
-  return static_cast<Index>(mine << kChunkLog2);
-}
-
-// The item at position ``pos`` of warp ``warp``'s walk.
-template <typename Index>
-__device__ __forceinline__ Index item_at(Index pos, Index warp, Index warps) {
-  return (((pos >> kChunkLog2) * warps + warp) << kChunkLog2) |
-         (pos & ((Index(1) << kChunkLog2) - 1));
-}
 
 constexpr int kMaxSpheres = 40;  // MAX_REPLAY_SPHERES in ops/kernels/replay.py
 
@@ -123,7 +96,7 @@ replay_kernel(const float* __restrict__ table, const float* __restrict__ cam,
   const Index warps = static_cast<Index>(gridDim.x) * (T / 32);
   const Index warp = static_cast<Index>(blockIdx.x) * (T / 32) + (threadIdx.x >> 5);
   Index next = 0;  // the warp's position in its walk
-  const Index end = owned_positions<Index>(p.n_items, warp, warps);
+  const Index end = pt::owned_positions<Index>(p.n_items, warp, warps);
   const Index n_items = static_cast<Index>(p.n_items);
   const unsigned int lane = threadIdx.x & 31;
 
@@ -136,7 +109,7 @@ replay_kernel(const float* __restrict__ table, const float* __restrict__ cam,
     unsigned int live = ~idle;
     if (next < end && __popc(idle) >= pt::kRefillMin) {
       const Index at = next + static_cast<Index>(__popc(idle & pt::lanes_below()));
-      const Index mine = item_at<Index>(at, warp, warps);
+      const Index mine = pt::item_at<Index>(at, warp, warps);
       next += static_cast<Index>(__popc(idle));
       if (!alive && at < end && mine < n_items) {
         PT_SEC_BEGIN();

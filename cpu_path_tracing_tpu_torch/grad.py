@@ -10,16 +10,24 @@ with a decoupled forward and backward, as the JAX package's custom VJP:
 
 * forward: ``render_cells_range`` on the fast route (the forward kernel on
   the card), without a tape;
-* backward, chosen from the fields and the config before anything runs
-  (JAX ``grad.py:259``): when ``replay`` is on and every field is in
-  ``OPTIMIZABLE_REPLAY``, the analytic replay
-  (``ops/replay.replay_param_grads_auto``: the replay kernel on the card
-  where it takes the scene, else the plain replay on the scene's device);
-  otherwise the scan VJP: each ``sample_chunk`` of the span recomputed under
-  autograd through the batch route with the backward config
-  (``_compact_bwd_cfg``: checkpointed bounces, live-ray compaction on a
-  pilot-tuned schedule) and contracted with the cotangent by
-  ``torch.autograd.grad`` (JAX ``_contracted_render_sum``).
+* backward, by one of three routes chosen from the fields, the scene and
+  the config before anything launches (``backward_route``):
+
+  - 'replay', every field in ``OPTIMIZABLE_REPLAY`` (JAX ``grad.py:259``):
+    the analytic replay (``ops/replay.replay_param_grads_auto``: the replay
+    kernel on the card where it takes the scene, else the plain replay on
+    the scene's device);
+  - 'geometry', any of p0, radius and camera among the fields of a CUDA
+    scene the kernels take: the geometry replay kernel for p0, radius and
+    the camera (``ops/kernels/geometry_replay.py``) and the replay kernel
+    for whichever of albedo, emission and background are fields too, each
+    one launch a span;
+  - 'scan', everything else (the CPU, float64, tent jitter, more than 40
+    spheres, ``replay=False``): the scan VJP, each ``sample_chunk`` of the
+    span recomputed under autograd through the batch route with the
+    backward config (``_compact_bwd_cfg``: checkpointed bounces, live-ray
+    compaction on a pilot-tuned schedule) and contracted with the
+    cotangent by ``torch.autograd.grad`` (JAX ``_contracted_render_sum``).
 
 The loss lives in linear radiance on subpixel cells, before the clamp of
 ``src/main.cpp:195-196``.
@@ -42,6 +50,8 @@ from .models.camera import FIELDS as CAMERA_FIELDS
 from .models.camera import CameraConfig
 from .models.scene import SPHERE_FIELDS, Scene
 from .ops.integrator import radiance
+from .ops.kernels.geometry_replay import geometry_param_grads_kernel
+from .ops.kernels.replay import replay_kernel_takes, replay_param_grads_kernel
 from .ops.replay import replay_param_grads_auto
 from .parallel.mesh import SAMPLE_AXIS, TILE_AXIS, Mesh
 from .parallel.render import replicate_scene, samples_per_shard, sum_shards
@@ -51,8 +61,26 @@ from .utils import debug
 # Scene fields that may be optimized.
 OPTIMIZABLE = ("p0", "radius", "albedo", "emission", "camera", "background")
 # Fields whose gradients the analytic replay backward covers (multilinear in
-# the estimator, ops/replay.py); the rest need the scan VJP.
+# the estimator, ops/replay.py); the rest take the geometry replay on the
+# card (ops/geometry_replay.py) or the scan VJP.
 OPTIMIZABLE_REPLAY = ("albedo", "emission", "background")
+
+
+def backward_route(scene, cfg: RenderConfig, fields, replay: bool = True) -> str:
+    """The backward of a span for ``fields``, chosen before anything
+    launches (module docstring): 'replay' when ``replay`` is on and every
+    field is in ``OPTIMIZABLE_REPLAY``; 'geometry' when ``replay`` is on and
+    the scene is on a CUDA device in a config the replay kernels take
+    (``ops/kernels/replay.replay_kernel_takes``: float32, uniform jitter,
+    1..40 spheres); else 'scan'.  Reads only the scene's device, dtype and
+    sphere count."""
+    if not replay:
+        return "scan"
+    if set(fields) <= set(OPTIMIZABLE_REPLAY):
+        return "replay"
+    if scene.device.type == "cuda" and replay_kernel_takes(cfg, scene.dtype, scene.num_spheres):
+        return "geometry"
+    return "scan"
 
 
 def split_params(scene: Scene, fields=("p0", "radius", "albedo")) -> Dict[str, object]:
@@ -170,17 +198,19 @@ def backward_drop_count(scene: Scene, cfg: RenderConfig, num_cells: int, params=
 
 
 def _compact_bwd_cfg(scene: Scene, cfg: RenderConfig, compact: bool) -> RenderConfig:
-    """The scan VJP's config: the batch route with the 'while' loop and
-    checkpointed bounces, plus a pilot-tuned compaction schedule when
-    ``compact`` and the scene's survival curve falls (a caller's explicit
-    schedule wins; shallow renders are not worth the pilot).  Built once a
-    span, on its first scan VJP (``_Span.bwd_cfg``).  'while' stops at the
-    first bounce with no ray alive, for a host sync a bounce; the JAX
-    package's 'scan' runs every bounce, as its autodiff needs.  Both give the
-    same gradients.  On the card the recompute is bound by its launches:
-    early exit saves none on a full chunk (some path lives to max_depth) and
-    a fifth of a simple 400x400 step's, whose last chunk ends early (PERF.md,
-    Findings PR 7)."""
+    """The scan VJP's config (the 'scan' route of ``backward_route``): the
+    batch route with the 'while' loop and checkpointed bounces, plus a
+    pilot-tuned compaction schedule when ``compact`` and the scene's
+    survival curve falls (a caller's explicit schedule wins; shallow renders
+    are not worth the pilot).  Built once a span, on its first scan VJP
+    (``_Span.bwd_cfg``).  'while' stops at the first bounce with no ray
+    alive, for a host sync a bounce; the JAX package's 'scan' runs every
+    bounce, as its autodiff needs.  Both give the same gradients.  On the
+    card this route's recompute is bound by its launches (the 'geometry'
+    route takes a float32 scene the kernels take to one launch a span):
+    early exit saves none on a full chunk (some path lives to max_depth)
+    and a fifth of a simple 400x400 step's, whose last chunk ends early
+    (PERF.md, Findings PR 7)."""
     bwd = cfg.replace(loop="while", integrator="batch", remat=True)
     if compact and bwd.compact_schedule is None and cfg.max_depth >= 16:
         sched = tune_backward_schedule(scene, bwd)
@@ -191,8 +221,8 @@ def _compact_bwd_cfg(scene: Scene, cfg: RenderConfig, compact: bool) -> RenderCo
 
 class _Span:
     """What a span's forward and backward run with.  ``bwd_cfg``, the scan
-    VJP's config, is built on first use: its pilot runs only where a scan
-    VJP does, never for a step whose backward is the replay."""
+    VJP's config, is built on first use: its pilot runs only on the 'scan'
+    route, never for a step whose backward is a replay."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig, spp: int, chunk: int, compact: bool,
                  replay: bool):
@@ -204,10 +234,9 @@ class _Span:
     def bwd_cfg(self) -> RenderConfig:
         return _compact_bwd_cfg(self.scene, self.cfg, self.compact)
 
-    def uses_replay(self, fields) -> bool:
-        """Whether the backward for ``fields`` is the replay (JAX
-        ``grad.py:259``); else the scan VJP."""
-        return self.replay and set(fields) <= set(OPTIMIZABLE_REPLAY)
+    def route(self, fields) -> str:
+        """The backward route for ``fields`` (``backward_route``)."""
+        return backward_route(self.scene, self.cfg, fields, self.replay)
 
 
 def _scan_vjp(span: _Span, cell_ids, sample_start: int, names, values, ct):
@@ -227,26 +256,33 @@ def _scan_vjp(span: _Span, cell_ids, sample_start: int, names, values, ct):
 
 class _RenderSpan(torch.autograd.Function):
     """Per-cell radiance sum over a sample span: forward on the fast route,
-    backward by the replay or the scan VJP."""
+    backward by the route ``backward_route`` chose."""
 
     @staticmethod
-    def forward(ctx, span, use_replay, cell_ids, sample_start, names, *values):
-        ctx.args = (span, use_replay, cell_ids, sample_start, names)
+    def forward(ctx, span, route, cell_ids, sample_start, names, *values):
+        ctx.args = (span, route, cell_ids, sample_start, names)
         ctx.save_for_backward(*values)
         sc = merge_params(span.scene, unflatten_params(names, values))
         return render_cells_range(sc, span.fwd_cfg, cell_ids, sample_start, span.spp)
 
     @staticmethod
     def backward(ctx, ct):
-        span, use_replay, cell_ids, sample_start, names = ctx.args
+        span, route, cell_ids, sample_start, names = ctx.args
         values = ctx.saved_tensors
-        if use_replay:
-            sc = merge_params(span.scene, unflatten_params(names, values))
-            g = replay_param_grads_auto(sc, span.fwd_cfg, cell_ids, sample_start, span.spp, ct)
-            grads = tuple(g[n].to(v.dtype) for n, v in zip(names, values))
+        if route == "scan":
+            return (None,) * 5 + _scan_vjp(span, cell_ids, sample_start, names, values, ct)
+        sc = merge_params(span.scene, unflatten_params(names, values))
+        args = (sc, span.fwd_cfg, cell_ids, sample_start, span.spp, ct)
+        fields = {n.partition(".")[0] for n in names}
+        g = {}
+        if route == "geometry":
+            g.update(geometry_param_grads_kernel(*args))
+            if fields & set(OPTIMIZABLE_REPLAY):
+                g.update(replay_param_grads_kernel(*args))
         else:
-            grads = _scan_vjp(span, cell_ids, sample_start, names, values, ct)
-        return (None,) * 5 + grads
+            g.update(replay_param_grads_auto(*args))
+        leaves = dict(zip(*flatten_params({f: g[f] for f in fields})))
+        return (None,) * 5 + tuple(leaves[n].to(v.dtype) for n, v in zip(names, values))
 
 
 def make_diff_render_span(scene: Scene, cfg: RenderConfig, spp_span: int,
@@ -267,8 +303,8 @@ def make_diff_render_span(scene: Scene, cfg: RenderConfig, spp_span: int,
     def render_sum(params, cell_ids, sample_start: int = 0):
         split_params(scene, tuple(params))  # raises for a field outside OPTIMIZABLE
         names, values = flatten_params(params)
-        return _RenderSpan.apply(span, span.uses_replay(params), cell_ids, int(sample_start),
-                                 names, *values)
+        return _RenderSpan.apply(span, span.route(params), cell_ids, int(sample_start), names,
+                                 *values)
 
     render_sum.span = span
     return render_sum
@@ -344,7 +380,7 @@ def make_accum_train_step(scene: Scene, cfg: RenderConfig, lr: float, *,
         def drop_check(params=None):
             # Nothing was compacted before a first step, nor by a replay step.
             names = step.leaf_names()
-            if names is None or step.span.uses_replay({k.partition(".")[0] for k in names}):
+            if names is None or step.span.route({k.partition(".")[0] for k in names}) != "scan":
                 return 0
             return backward_drop_count(scene, step.span.bwd_cfg, cc, params=params)
 

@@ -161,6 +161,14 @@ def item_rays(cfg: RenderConfig, camera: Camera, dyn, n_cells: int, i0: int, i1:
 
 def rays_for_items(cfg: RenderConfig, camera: Camera, dyn, n_cells: int, item, dtype):
     """``item_rays`` for an int64 tensor of item indices."""
+    c_idx, keys, (s, t, u) = camera_samples_for_items(cfg, dyn, n_cells, item, dtype)
+    o, d = get_rays(camera, s, t, u[:, 2], u[:, 3])
+    return c_idx, keys, o, d
+
+
+def camera_samples_for_items(cfg: RenderConfig, dyn, n_cells: int, item, dtype):
+    """The camera samples of items (an int64 tensor) as the kernels regenerate
+    them: (c [B], item keys (a0, a1), (s [B], t [B], camera uniforms [B,4]))."""
     from ...render import screen_coords  # render imports this module
 
     cell_start, sample_start = (int(v) for v in dyn)
@@ -169,8 +177,7 @@ def rays_for_items(cfg: RenderConfig, camera: Camera, dyn, n_cells: int, item, d
     a0, a1 = rng_ops.item_keys(cfg.seed, cell, sample_start + item // n_cells)
     u = rng_ops.camera_uniforms(a0, a1).to(dtype)
     s, t = screen_coords(cfg, cell, u, dtype)
-    o, d = get_rays(camera, s, t, u[:, 2], u[:, 3])
-    return c_idx, (a0, a1), o, d
+    return c_idx, (a0, a1), (s, t, u)
 
 
 def persistent_render_reference(table, cam, dyn, *, cfg: RenderConfig, n_cells: int,

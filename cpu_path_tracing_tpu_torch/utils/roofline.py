@@ -146,6 +146,43 @@ CHAIN_OPS = {
 }
 
 
+def geometry_sweep_ops() -> OpCounts:
+    """One bounce of the geometry replay's sweep (``bounce_vjp`` in
+    ``csrc/geometry_replay.cu``) at the least: the hit sphere's quadratic
+    and root choice again (58, a square root, two divisions), the hit
+    record again (29, a square root, a division), the bounce's first
+    Threefry block and its uniform (2), the cheapest sampler's VJP
+    (specular reflection, 27), the normal's fold and the hit record's VJP
+    (37), the root's VJP and the sphere's four partials (75, three
+    divisions)."""
+    return OpCounts(simple=228, threefry=1, sqrt=2, div=6)
+
+
+def geometry_path_ops() -> OpCounts:
+    """What a path that ends on a miss adds once: the seed (the cotangent's
+    weight and d(sky_t)/d(d): 20, a square root, a division), the item's
+    camera sample again (``item_ops`` less the ray: 40, two blocks, four
+    divisions) and the primary ray's VJP with its 14 partials (45, a square
+    root, a sine and a cosine)."""
+    return OpCounts(simple=105, threefry=2, sqrt=2, div=5, sincos=2)
+
+
+def geometry_ops(n_spheres: int, segments: int, n_items: int, sweep_bounces: int,
+                 missed: int) -> OpCounts:
+    """The geometry replay kernel's operations: the forward render's
+    (``render_ops``) and the sweeps that this run's data needed: the
+    bounces swept back and the paths that ended on a miss."""
+    return (render_ops(n_spheres, segments, n_items)
+            .plus(geometry_sweep_ops().times(sweep_bounces))
+            .plus(geometry_path_ops().times(missed)))
+
+
+def geometry_record_bytes(segments: int, sweep_bounces: int) -> int:
+    """The geometry replay's record traffic: 7 words stored a segment and
+    loaded a bounce swept back."""
+    return 28 * (segments + sweep_bounces)
+
+
 def bound_ms(nbytes: float, issues: float) -> tuple[float, str]:
     """(least ms, which side binds) for moving ``nbytes`` and issuing
     ``issues`` operations at the published peaks."""

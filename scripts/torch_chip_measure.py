@@ -71,16 +71,23 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   40 spheres of random_spheres, each on a chunk of the same size): median of
   3 kernel launches, with registers and spills from ptxas, segments and
   occupancy.  ``--variants a,b`` picks some.  Not part of ``all``.
-- geometry: one backward recompute (a 131,072-cell chunk, a sample) of the
-  production geometry step (box 400x400, 64 total spp, max_depth 100, p0,
-  radius, albedo and emission) with and without live-ray compaction and
-  with the backward's loop 'while' (early exit) and 'scan', and on simple
-  at the same size, compaction with each loop: wall ms, peak memory,
-  profiled launches, device ms and busy share.  About 1 minute on an H100;
-  not part of ``all``.
-- geometry_step: one whole production geometry step as ``cli invert``
-  builds it (ms, loss, peak memory, forward launches).  About 5 minutes on
-  an H100; not part of ``all``.
+- geometry: the backward of one 131,072-cell chunk of the production
+  geometry step (box 400x400, 64 total spp, max_depth 100, p0, radius,
+  albedo and emission) and of simple at that size on both routes of
+  ``grad.backward_route``: 'geometry' (the geometry replay and replay
+  kernels, all 16 samples) and 'scan' (``--no-replay-backward``, one
+  recompute of one sample): wall ms of the span's forward and backward,
+  ms a sample, peak memory, profiled
+  launches, device ms and busy share; then the geometry replay kernel alone
+  on each chunk (ms, segments, swept paths and bounces, bound).  About 1
+  minute on an H100; not part of ``all``.
+- geometry_step: the production geometry step as ``cli invert`` builds it
+  on each route: 'geometry' (3 whole steps after a warm-up: ms, launches a
+  step, one step profiled, then the step's gradient) and 'scan' (the
+  step's gradient once: several minutes, not profiled): ms, loss, peak
+  memory, the largest p0 and radius gradient, the paths that ended on a
+  miss, and the two routes' gradients against each other.  About 7 minutes
+  on an H100; not part of ``all``.
 - sharded: the mesh paths on one card beside their one-device forms, in
   turns: the disco render one pass, on a 4x1 and on a 2x2 mesh of cuda:0,
   and the production inverse step on one device and on a 2x2 mesh, each a
@@ -453,97 +460,167 @@ GEOMETRY_CHUNK = 1 << 17
 GEOMETRY_FIELDS = ("p0", "radius", "albedo", "emission")
 
 
-def part_geometry(dev):
-    """One backward recompute of the production geometry step (box 400x400,
-    64 total spp, max_depth 100, p0, radius, albedo and emission,
-    sample_chunk 1: the first 131,072-cell chunk, sample 0, after a warm-up
-    recompute) for each variant: on box with and without live-ray
-    compaction, each with the backward's loop 'while' (early exit, a host
-    sync a bounce) and 'scan' (every bounce); on simple at the same size,
-    compaction with 'while' and 'scan'.  The loop is set on the scan VJP's
-    config of ``grad.make_diff_render``, the rest of that config as built.
-    Reports wall ms (ended by a sync), peak device memory, and under
-    ``torch.profiler`` launches, device ms and busy share."""
+def _profiled(fn):
+    """``fn()`` once under ``torch.profiler``: (window ms, device ms, busy
+    share, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+    window_ms = e0.elapsed_time(e1)
+    by_kernel = profiling.device_time_by_kernel(prof)
+    device_ms = sum(ms for ms, _ in by_kernel.values())
+    return {"window_ms": window_ms, "device_ms": device_ms, "busy_share": device_ms / window_ms,
+            "launches": sum(n for _, n in by_kernel.values())}
+
+
+def part_geometry(dev):
+    """The backward of one 131,072-cell chunk of the production geometry
+    step (box 400x400, 64 total spp, max_depth 100, p0, radius, albedo and
+    emission) and of the same chunk of simple, on both routes of
+    ``grad.backward_route``: 'geometry' (the geometry replay and the replay
+    kernels, all 16 samples in one launch each) and 'scan' (``replay=False``:
+    one recompute of one sample, the module's compaction and loop, after a
+    warm-up).  Each: wall ms of the span's forward and backward (ended by a
+    sync), ms a sample, peak memory, and under ``torch.profiler`` launches,
+    device ms and busy share.  Then
+    the geometry replay kernel alone on each chunk: CUDA-event ms (1
+    warm-up, median of 3), segments, swept paths and bounces, and its
+    bound."""
     from cpu_path_tracing_tpu_torch import grad
+    from cpu_path_tracing_tpu_torch.ops.kernels import geometry_replay as gk
 
     cfg = tp.RenderConfig(**GEOMETRY_CFG)
     ids = torch.arange(GEOMETRY_CHUNK, device=dev)
     ct = torch.ones((GEOMETRY_CHUNK, 3), device=dev)
-    variants = (("box", True, "while"), ("box", False, "while"), ("box", True, "scan"),
-                ("box", False, "scan"), ("simple", True, "while"), ("simple", True, "scan"))
-    warmed = set()
-    for name, compact, loop in variants:
+    for name in ("box", "simple"):
         scene = tp.get_scene(name, cfg.width, cfg.height).to(dev)
         start = {k: v + 0.02 for k, v in grad.split_params(scene, GEOMETRY_FIELDS).items()}
-        bwd_cfg = grad.make_diff_render(scene, cfg, 1, compact=compact).span.bwd_cfg
-        bwd_cfg = bwd_cfg.replace(loop=loop)
+        for route, replay, spp in (("geometry", True, cfg.spp), ("scan", False, 1)):
+            render_sum = grad.make_diff_render_span(scene, cfg, spp, 1, replay=replay)
+            assert render_sum.span.route(GEOMETRY_FIELDS) == route
 
-        def recompute():
-            names, values = grad.flatten_params(start)
-            leaves = [v.detach().requires_grad_(True) for v in values]
-            sc = grad.merge_params(scene, grad.unflatten_params(names, leaves))
-            out = render.render_cells_range(sc, bwd_cfg, ids, 0, 1)
-            g = torch.autograd.grad(out, leaves, grad_outputs=ct)
-            torch.cuda.synchronize()
-            return g
+            def backward():
+                names, values = grad.flatten_params(start)
+                leaves = [v.detach().requires_grad_(True) for v in values]
+                out = render_sum(grad.unflatten_params(names, leaves), ids, 0)
+                g = torch.autograd.grad(out, leaves, grad_outputs=ct)
+                torch.cuda.synchronize()
+                return g
 
-        if name not in warmed:
-            recompute()
-            warmed.add(name)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        recompute()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            e0.record()
-            recompute()
-            e1.record()
-            torch.cuda.synchronize()
-        window_ms = e0.elapsed_time(e1)
-        by_kernel = profiling.device_time_by_kernel(prof)
-        device_ms = sum(ms for ms, _ in by_kernel.values())
-        launches = sum(n for _, n in by_kernel.values())
-        del prof
-        emit({"geometry_recompute": f"{name} 400x400, max_depth 100, "
-                                    "p0,radius,albedo,emission, a 131072-cell chunk, 1 sample",
-              "scene": name, "compact": compact, "backward_loop": loop,
-              "compact_schedule": bwd_cfg.compact_schedule, "wall_ms": wall_ms,
-              "peak_memory_gb": peak_gb, "profiled": {"window_ms": window_ms,
-                                                      "device_ms": device_ms,
-                                                      "busy_share": device_ms / window_ms,
-                                                      "launches": launches},
-              "us_per_launch": wall_ms * 1e3 / launches, "smi": smi()})
+            backward()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            backward()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            emit({"geometry_chunk": f"{name} 400x400, max_depth 100, "
+                                    "p0,radius,albedo,emission, a 131072-cell chunk",
+                  "route": route, "samples": spp, "wall_ms": wall_ms,
+                  "ms_per_sample": wall_ms / spp,
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "profiled": _profiled(backward), "smi": smi()})
+        table, cam = mk.pack_scene(scene), mk.pack_camera(scene)
+        kw = dict(cfg=cfg, n_cells=GEOMETRY_CHUNK, n_items=cfg.spp * GEOMETRY_CHUNK, ior=scene.ior)
+        times, (part, st) = event_times(lambda: gk.geometry_replay(table, cam, (0, 0), ct, **kw))
+        seg, sweep, missed = (int(st[k]) for k in ("segments", "sweep_bounces", "missed"))
+        ops = roofline.geometry_ops(scene.num_spheres, seg, kw["n_items"], sweep, missed)
+        nbytes = (roofline.geometry_record_bytes(seg, sweep)
+                  + 4 * (ct.numel() + table.numel() + cam.numel() + part.numel()))
+        bound, by = roofline.bound_ms(nbytes, ops.issues())
+        emit({"geometry_kernel": f"{name} 400x400, 16 spp, max_depth 100, 131072 cells",
+              "ms": sorted(times)[1], "runs_ms": times, "items": kw["n_items"], "segments": seg,
+              "missed": missed, "sweep_bounces": sweep, "lanes": st["lanes"],
+              "bound_ms": bound, "bound_by": by, "record_gb": nbytes / 1e9, "smi": smi()})
 
 
 def part_geometry_step(dev):
-    """One whole production geometry step (``make_accum_train_step`` as
-    ``cli invert`` builds it, the module's loop and compaction): wall ms,
-    loss, peak memory, forward-kernel launches."""
+    """The production geometry step (box 400x400, 64 total spp, max_depth
+    100, p0, radius, albedo and emission from +0.02, 131,072-cell chunks,
+    as ``cli invert`` builds it) on each route.  'geometry': a warm-up,
+    then 3 whole steps (``make_accum_train_step``; wall ms each, ended by a
+    sync), the three kernels' launches a step, peak memory, one step under
+    ``torch.profiler``, and the step's gradient (``make_accum_loss_grad``).
+    'scan' (``--no-replay-backward``): the step's gradient once, timed (the
+    step less Adam's update; several minutes), with peak memory; no profiler
+    (a step is ~12 M launches: ``part_geometry`` profiles one recompute).
+    Then each route's largest p0 and radius gradient, the paths that ended
+    on a miss (the geometry replay's count: only they carry one; the box
+    is closed, and a float32 ray that slips through a seam is the rare
+    exception) and the two routes' p0, radius, albedo and emission
+    gradients against each other."""
     from cpu_path_tracing_tpu_torch import grad
+    from cpu_path_tracing_tpu_torch.ops.kernels import geometry_replay as gk
+    from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
 
     cfg = tp.RenderConfig(**GEOMETRY_CFG)
     scene = tp.get_scene("box", cfg.width, cfg.height).to(dev)
     start = {k: v + 0.02 for k, v in grad.split_params(scene, GEOMETRY_FIELDS).items()}
     target = grad.render_target(scene, cfg, GEOMETRY_CHUNK)
-    step = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=GEOMETRY_CHUNK,
-                                      sample_chunk=1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = mk.persistent_render.launches
-    t0 = time.perf_counter()
-    _, loss = step(start, target)
-    loss = float(loss)
-    emit({"geometry_step": "box 400x400, 64 total spp, max_depth 100, "
-                           "p0,radius,albedo,emission, sample_chunk 1, 131072-cell chunks",
-          "compact": True, "backward_loop": step.span.bwd_cfg.loop,
-          "step_ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "k2_launches": mk.persistent_render.launches - before,
-          "recomputes": -(-cfg.num_cells // GEOMETRY_CHUNK) * cfg.spp, "smi": smi()})
+    kw = dict(cell_chunk=GEOMETRY_CHUNK, sample_chunk=1)
+
+    def launches():
+        return (mk.persistent_render.launches, rk.replay_persistent.launches,
+                gk.geometry_replay.launches)
+
+    grads = {}
+    for route, replay in (("geometry", True), ("scan", False)):
+        loss_grad = grad.make_accum_loss_grad(scene, cfg, replay=replay, **kw)
+        assert loss_grad.span.route(GEOMETRY_FIELDS) == route
+        rec = {"geometry_step": "box 400x400, 64 total spp, max_depth 100, "
+                                "p0,radius,albedo,emission from +0.02, sample_chunk 1, "
+                                "131072-cell chunks", "route": route}
+        if route == "geometry":
+            step = grad.make_accum_train_step(scene, cfg, 1e-2, **kw)
+            params, _ = step(start, target)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = []
+            for _ in range(3):
+                before = launches()
+                t0 = time.perf_counter()
+                params, loss = step(params, target)
+                loss = float(loss)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            rec.update(step_ms=step_ms, loss=loss,
+                       launches_per_step=dict(zip(("k2", "k3", "k7"),
+                                                  (a - b for a, b in zip(launches(), before)))),
+                       profiled=_profiled(lambda: step(params, target)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        t0 = time.perf_counter()
+        loss, g = loss_grad(start, target)
+        loss = float(loss)
+        rec.update(gradient_ms=(time.perf_counter() - t0) * 1e3, gradient_loss=loss,
+                   gradient_launches=dict(zip(("k2", "k3", "k7"),
+                                              (a - b for a, b in zip(launches(), before)))),
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   max_abs={k: float(v.abs().max()) for k, v in g.items()}, smi=smi())
+        if route == "geometry":
+            # The step's paths that ended on a miss, counted by the geometry
+            # replay chunk by chunk at the same parameters.
+            sc = grad.merge_params(scene, start)
+            table, cam = mk.pack_scene(sc), mk.pack_camera(sc)
+            ones = torch.ones((GEOMETRY_CHUNK, 3), device=dev)
+            rec["missed_paths"] = 0
+            for c0 in range(0, cfg.num_cells, GEOMETRY_CHUNK):
+                n = min(GEOMETRY_CHUNK, cfg.num_cells - c0)
+                _, st = gk.geometry_replay(table, cam, (c0, 0), ones[:n], cfg=cfg, n_cells=n,
+                                           n_items=cfg.spp * n, ior=sc.ior)
+                rec["missed_paths"] += int(st["missed"])
+        else:
+            rec["recomputes"] = -(-cfg.num_cells // GEOMETRY_CHUNK) * cfg.spp
+        grads[route] = g
+        emit(rec)
+    emit({"geometry_step_routes": "the geometry route's gradients against the scan route's",
+          "max_abs_diff": {k: float((grads["geometry"][k] - grads["scan"][k]).abs().max())
+                           for k in GEOMETRY_FIELDS},
+          "scan_max_abs": {k: float(grads["scan"][k].abs().max()) for k in GEOMETRY_FIELDS},
+          "smi": smi()})
 
 
 @contextlib.contextmanager

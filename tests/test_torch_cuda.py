@@ -13,6 +13,8 @@ import torch
 import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch.ops import rng as rng_ops
 from cpu_path_tracing_tpu_torch.ops import wavefront
+from cpu_path_tracing_tpu_torch.ops.geometry_replay import geometry_partial_blocks
+from cpu_path_tracing_tpu_torch.ops.kernels import geometry_replay as gk
 from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
 from cpu_path_tracing_tpu_torch.ops.kernels import probe as pk
 from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
@@ -374,16 +376,100 @@ def test_geometry_gradients_match_the_cpu_in_float64(cuda, name):
 
 def test_geometry_gradients_repeat_bitwise_on_the_card(cuda):
     """Float32 p0, radius and camera gradients: two backward passes give
-    bitwise-equal, finite gradients, the forward through the forward kernel
-    and no replay kernel launch."""
+    bitwise-equal, finite gradients, the forward through the forward kernel,
+    the backward through the geometry replay kernel (one launch a pass) and
+    no replay kernel launch."""
     cfg = tp.RenderConfig(width=32, height=24, spp=2, max_depth=100)
     scene = tp.get_scene("simple", 32, 24).to(cuda)
-    fwd, rep = mk.persistent_render.launches, rk.replay_persistent.launches
+    fwd, rep, geo = (mk.persistent_render.launches, rk.replay_persistent.launches,
+                     gk.geometry_replay.launches)
     first = _leaf_grads(scene, cfg, ("p0", "radius", "camera"))
     second = _leaf_grads(scene, cfg, ("p0", "radius", "camera"))
     assert mk.persistent_render.launches > fwd and rk.replay_persistent.launches == rep
+    assert gk.geometry_replay.launches == geo + 2
     for n in first:
         assert torch.equal(first[n], second[n]) and bool(torch.isfinite(first[n]).all()), n
+
+
+def _geometry_launch(cuda, name, width, height, spp, depth, dyn, n_cells):
+    cfg = tp.RenderConfig(width=width, height=height, spp=spp, max_depth=depth)
+    scene = tp.get_scene(name, width, height)
+    ct = np.random.default_rng(n_cells).normal(0, 1, (n_cells, 3)).astype(np.float32)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), dyn,
+            torch.from_numpy(ct).to(cuda))
+    return scene, args, dict(cfg=cfg, n_cells=n_cells, n_items=spp * n_cells, ior=scene.ior)
+
+
+def _geometry_blocks_ok(got, ref, n_spheres):
+    for name, sl in geometry_partial_blocks(n_spheres).items():
+        g, r = got[sl].cpu(), ref[sl].cpu()
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max()) + 1e-7, name
+
+
+@pytest.mark.parametrize("name,depth", [("simple", 8), ("simple", 100), ("new_camera", 100),
+                                        ("box_mirror", 100)])
+def test_geometry_replay_kernel_matches_plain_version(cuda, name, depth):
+    """The geometry replay kernel's [4N+14] partials against its plain
+    version (the same float32 decisions, float64 adjoints) at 64x48, 2 spp:
+    segments, swept paths and swept bounces equal, each block (p0, radius,
+    camera) within 1e-4 of its largest magnitude + 1e-7."""
+    scene, args, kw = _geometry_launch(cuda, name, 64, 48, 2, depth, (0, 0), 64 * 48 * 4)
+    before = gk.geometry_replay.launches
+    got, st = gk.geometry_replay(*args, **kw)
+    ref, ref_st = gk.geometry_replay_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert gk.geometry_replay.launches == before + 1
+    for k in ("segments", "missed", "sweep_bounces"):
+        assert int(st[k]) == ref_st[k], k
+    _geometry_blocks_ok(got, ref, scene.num_spheres)
+
+
+def test_geometry_replay_kernel_repeats_bitwise_at_an_offset(cuda):
+    """More items than threads, at a nonzero cell_start and sample_start
+    over a span whose item count is no multiple of 32: two launches bitwise
+    equal, and the plain version's counts and block limits."""
+    scene, args, kw = _geometry_launch(cuda, "simple", 256, 192, 8, 100, (30_001, 5), 60_003)
+    got, st = gk.geometry_replay(*args, **kw)
+    again, _ = gk.geometry_replay(*args, **kw)
+    ref, ref_st = gk.geometry_replay_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and st["lanes"] < kw["n_items"]
+    assert int(st["missed"]) == ref_st["missed"] > 0
+    _geometry_blocks_ok(got, ref, scene.num_spheres)
+
+
+def test_geometry_route_launches_the_kernels_on_the_card(cuda):
+    """``make_accum_loss_grad`` on a float32 CUDA scene with p0, radius,
+    emission and camera over 4 cell chunks: the 'geometry' route, 4
+    geometry and 4 replay kernel launches and no scan VJP, each field within
+    1e-3 of its largest magnitude of the CPU's scan VJP; random_spheres (100
+    spheres) takes the scan VJP on the card with no geometry launch."""
+    from cpu_path_tracing_tpu_torch import grad
+
+    fields = ("p0", "radius", "emission", "camera")
+    cfg = tp.RenderConfig(width=32, height=24, spp=2, max_depth=100)
+
+    def grads(scene):
+        target = grad.render_target(scene, cfg) * 0.9
+        _, g = grad.make_accum_loss_grad(scene, cfg, cell_chunk=768)(
+            grad.split_params(scene, fields), target)
+        return {n: v.double().cpu() for n, v in zip(*grad.flatten_params(g))}
+
+    ref = grads(tp.get_scene("simple", 32, 24))
+    scene = tp.get_scene("simple", 32, 24).to(cuda)
+    assert grad.backward_route(scene, cfg, fields) == "geometry"
+    geo, rep = gk.geometry_replay.launches, rk.replay_persistent.launches
+    got = grads(scene)
+    assert gk.geometry_replay.launches == geo + 4 and rk.replay_persistent.launches == rep + 4
+    for n, r in ref.items():
+        field = [m for m in ref if m.split(".")[0] == n.split(".")[0]]
+        scale = max(float(ref[m].abs().max()) for m in field)
+        assert float((got[n] - r).abs().max()) <= 1e-3 * scale, n
+    big = tp.get_scene("random_spheres", 32, 24).to(cuda)
+    assert grad.backward_route(big, cfg, fields) == "scan"
+    geo = gk.geometry_replay.launches
+    grads(big)
+    assert gk.geometry_replay.launches == geo
 
 
 @pytest.mark.parametrize("name,dtype,jitter", [("random_spheres", torch.float32, "uniform"),
