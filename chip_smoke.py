@@ -101,7 +101,10 @@ script exits non-zero.
    most 40 spheres at 64x48, 2 spp, max_depth 8 and 100, with a seeded
    normal cotangent: segments, swept paths and swept bounces equal, each
    block within 1e-4 of its largest magnitude + 1e-7, two launches bitwise
-   equal.  Then two regenerating launches on simple 400x400 at nonzero
+   equal.  The same on simple with every sphere twice and with its right
+   sphere three times (roots that tie exactly: t's adjoint split among
+   them), the tied bounces swept more than 0 and equal to the plain
+   version's.  Then two regenerating launches on simple 400x400 at nonzero
    cell_start and sample_start (one past the last cell), and the scenes of
    more than 40 spheres on the 'scan' route (random_spheres: a p0, radius
    and camera step on the card with no geometry replay launch).
@@ -123,7 +126,10 @@ script exits non-zero.
    under ``torch.profiler`` (busy share, launches); then the geometry
    replay kernel on the step's first chunk with its own cotangent: its ms
    (1 warm-up, median of 3), its plain version's, the block limits, counts
-   equal and two launches bitwise equal.
+   equal and two launches bitwise equal.  Then geometry_replay_chunks: the
+   geometry replay and the replay kernel side by side on that chunk and on
+   a box and a simple chunk of the same size: each one's ms, the geometry
+   replay's counts, bound and ratios to its bound and to the replay kernel.
 17. geometry_path_scan: ``cli invert --scene simple --width 200 --height
    200 --total-spp 4 --max-depth 100 --fields p0,radius,albedo,camera
    --steps 2 --no-replay-backward`` (cut from the full width: its eager
@@ -207,7 +213,8 @@ the geometry path, on each host-runtime path and on each mesh or multi-process p
 (``launches_parallel``); the whole-render, replay and geometry replay
 kernels also with their registers, the threads resident an SM and the
 launch's occupancy, the geometry replay's bound from the forward's
-operations, the sweeps' and its record's bytes (``record_gb``);
+operations, the sweeps' and its record's bytes (``record_gb``), and its
+three chunks of geometry_replay_chunks (``chunks``);
 the per-step kernel's bound is the
 render's, equal to the whole-render kernel's, with the floor of the
 lane-state traffic its design moves beside it as ``state_floor_ms``), the
@@ -1723,6 +1730,7 @@ def main() -> int:
     from cpu_path_tracing_tpu_torch.ops.geometry_replay import geometry_partial_blocks
     from cpu_path_tracing_tpu_torch.ops.integrator import checkpoint as checkpoint_fn
     from cpu_path_tracing_tpu_torch.ops.kernels import geometry_replay as gk
+    from cpu_path_tracing_tpu_torch.models.scene import Scene
 
     def flat(g):
         return dict(zip(*grad.flatten_params(g)))
@@ -1749,7 +1757,8 @@ def main() -> int:
         ref, ref_st = gk.geometry_replay_reference(table, cam, dyn, ct, **kw)
         dev_rec, blocks_ok, err = replay_deviation(got, ref, table.shape[0],
                                                    geometry_partial_blocks)
-        counts = {k: [int(st[k]), ref_st[k]] for k in ("segments", "missed", "sweep_bounces")}
+        counts = {k: [int(st[k]), ref_st[k]]
+                  for k in ("segments", "missed", "sweep_bounces", "tied_bounces")}
         ok = blocks_ok and all(a == b for a, b in counts.values())
         return {"counts": counts, "blocks": dev_rec, "bitwise_repeat": bool(torch.equal(got, again)),
                 "lanes": st["lanes"]}, ok and bool(torch.equal(got, again)), err
@@ -1788,6 +1797,32 @@ def main() -> int:
         rec["ok"] = ok
         emit(rec)
         check(ok, f"geometry replay kernel vs plain version on {name}")
+
+    # Exact ties: simple with every sphere twice, and with its right sphere
+    # three times (a copy's roots equal the original's bit for bit).
+    simple = tp.get_scene("simple", W, H)
+    for how, rows in (("duplicated", [0, 1, 2, 3, 4, 0, 1, 2, 3, 4]),
+                      ("tripled", [0, 1, 2, 3, 4, 1, 1])):
+        idx = torch.tensor(rows)
+        scene = Scene(**{f: getattr(simple, f)[idx] for f in ("p0", "radius", "anchor_dir",
+                                                              "emission", "albedo", "material")},
+                      background=simple.background, camera=simple.camera, ior=simple.ior)
+        table, cam = mk.pack_scene(scene).to(dev), mk.pack_camera(scene).to(dev)
+        cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=8)
+        ct = torch.from_numpy(np.random.default_rng(15).normal(0, 1, (cfg.num_cells, 3))
+                              .astype(np.float32)).to(dev)
+        rec = {"phase": "geometry_replay_vs_plain", "scene": f"simple, spheres {how}",
+               "spheres": scene.num_spheres, "rows": rows}
+        ok = True
+        for depth in (8, 100):
+            kw = dict(cfg=cfg.replace(max_depth=depth), n_cells=cfg.num_cells,
+                      n_items=SPP * cfg.num_cells, ior=scene.ior)
+            rec[f"d{depth}"], ok_d, err = geometry_vs_plain(table, cam, (0, 0), ct, **kw)
+            k7_worst = max(k7_worst, err)
+            ok = ok and ok_d and rec[f"d{depth}"]["counts"]["tied_bounces"][0] > 0
+        rec["ok"] = ok
+        emit(rec)
+        check(ok, f"geometry replay kernel vs plain version with tied roots ({how})")
 
     cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
     scene = tp.get_scene("simple", cfg.width, cfg.height).to(dev)
@@ -1955,7 +1990,8 @@ def main() -> int:
     k7_plain_ms = start.elapsed_time(end)
     dev_rec, blocks_ok, err = replay_deviation(got, ref, sc.num_spheres, geometry_partial_blocks)
     k7_worst = max(k7_worst, err)
-    chunk_counts = {k: [int(st[k]), ref_st[k]] for k in ("segments", "missed", "sweep_bounces")}
+    chunk_counts = {k: [int(st[k]), ref_st[k]]
+                    for k in ("segments", "missed", "sweep_bounces", "tied_bounces")}
     regs = by_name["geometry_replay_kernel<u32,8>"]
     rec = {"phase": "geometry_path", "command": "python -m cpu_path_tracing_tpu_torch.cli "
            + " ".join(geo_argv), "route": step.span.route(fields),
@@ -1983,21 +2019,49 @@ def main() -> int:
     k2["launches_geometry_path"] = k2_geo
     k3["launches_geometry_path"] = k3_geo
 
-    # The bound of one chunk: K2's forward operations and the sweeps this
-    # chunk needed, against the record's traffic and the inputs and rows.
-    k7_ops = roofline.geometry_ops(sc.num_spheres, int(st["segments"]), kw["n_items"],
-                                   int(st["sweep_bounces"]), int(st["missed"]))
-    k7_bytes = (roofline.geometry_record_bytes(int(st["segments"]), int(st["sweep_bounces"]))
-                + 4 * (ct.numel() + table.numel() + cam.numel() + got.numel()))
-    k7_bound, k7_by = roofline.bound_ms(k7_bytes, k7_ops.issues())
+    def k7_chunk(table, cam, ct, part, st, kw):
+        """K7's bound on one chunk: K2's forward operations and the sweeps
+        this chunk needed, against the record's traffic and the inputs and
+        rows.  Returns (record, operations)."""
+        counts = {k: int(st[k]) for k in ("segments", "missed", "sweep_bounces", "tied_bounces")}
+        ops = roofline.geometry_ops(table.shape[0], counts["segments"], kw["n_items"],
+                                    counts["sweep_bounces"], counts["missed"],
+                                    counts["tied_bounces"])
+        nbytes = (roofline.geometry_record_bytes(counts["segments"], counts["sweep_bounces"],
+                                                 kw["n_items"])
+                  + 4 * (ct.numel() + table.numel() + cam.numel() + part.numel()))
+        bound, by = roofline.bound_ms(nbytes, ops.issues())
+        return {**counts, "bound_ms": bound, "bound_by": by, "record_gb": nbytes / 1e9}, ops
+
+    # K7 and K3 on three chunks of 131,072 cells, 16 samples, max_depth 100:
+    # the step's first (above), a box and a simple chunk (seeded normal
+    # cotangents), each kernel's median of 3 after a warm-up.
+    k7_step, k7_ops = k7_chunk(table, cam, ct, got, st, kw)
+    k7_step.update(ms=k7_ms, k3_ms=cuda_time_ms(
+        lambda: rk.replay_persistent(table, cam, (0, 0), ct, **kw))[0])
+    k7_chunks = {"step": k7_step}
+    ct_n = torch.from_numpy(np.random.default_rng(16).normal(0, 1, (chunk, 3))
+                            .astype(np.float32)).to(dev)
+    for name in ("box", "simple"):
+        csc = tp.get_scene(name, cfg.width, cfg.height)
+        ctab, ccam = mk.pack_scene(csc).to(dev), mk.pack_camera(csc).to(dev)
+        ckw = dict(cfg=cfg, n_cells=chunk, n_items=cfg.spp * chunk, ior=csc.ior)
+        ms, (cpart, cst) = cuda_time_ms(lambda: gk.geometry_replay(ctab, ccam, (0, 0), ct_n, **ckw))
+        k7_chunks[name] = {**k7_chunk(ctab, ccam, ct_n, cpart, cst, ckw)[0], "ms": ms,
+                           "k3_ms": cuda_time_ms(lambda: rk.replay_persistent(
+                               ctab, ccam, (0, 0), ct_n, **ckw))[0]}
+    for c in k7_chunks.values():
+        c.update(ratio_to_bound=c["ms"] / c["bound_ms"], ratio_to_k3=c["ms"] / c["k3_ms"])
+    emit({"phase": "geometry_replay_chunks", "config": "400x400, 131,072 cells, 16 samples, "
+          "max_depth 100", "chunks": k7_chunks, "smi": smi})
     k7 = {"name": "geometry_replay", "route": "cuda", "source": f"{PKG}/csrc/geometry_replay.cu",
           "replaces": "cpu_path_tracing_tpu/grad.py:153 (no pallas_call: XLA autodiff of the "
                       "checkpointed scan)",
           "launches": k7_geo, "max_abs_err": k7_worst, "ms": k7_ms, "plain_ms": k7_plain_ms,
-          "bound_ms": k7_bound, "bound_by": k7_by, "library_ms": None,
+          "bound_ms": k7_step["bound_ms"], "bound_by": k7_step["bound_by"], "library_ms": None,
           "registers": regs["registers"], "resident_threads_per_sm": st["lanes"] // sms,
           "occupancy": int(st["segments"]) / (int(st["iters"]) * st["lanes"]),
-          "record_gb": k7_bytes / 1e9}
+          "record_gb": k7_step["record_gb"], "chunks": k7_chunks}
 
     # ---- 17. the geometry path on the 'scan' route (--no-replay-backward) ----
     scan_argv = ["invert", "--scene", "simple", "--width", "200", "--height", "200", "--total-spp",

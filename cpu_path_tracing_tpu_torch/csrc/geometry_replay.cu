@@ -8,58 +8,113 @@
 // a path's value only through the sky lerp of its terminal miss direction.
 // Each path is rendered again with the forward kernel's step math
 // (start_path, bounce<true>: the same decisions bit for bit), recording each
-// bounce's input ray and hit id; a path that ends on a miss then carries one
-// seed, w = sum_c ct_c * thr_c * (bg1_c - bg0_c) times d(sky_t)/d(d), which
-// it sweeps back through its bounces, newest first, by the hand-written VJP
-// of the sampler of the material it hit, the hit record and the hit sphere's
-// root.  Each bounce adds the hit sphere's p0 and radius terms; the sweep
-// ends in the VJP of the primary ray (lens disk, origin_advance).  A path
-// that the roulette or the depth limit ends adds nothing.  Partials:
+// bounce's input ray, hit id and tie count; a path that ends on a miss then
+// carries one seed, w = sum_c ct_c * thr_c * (bg1_c - bg0_c) times
+// d(sky_t)/d(d), which it sweeps back through its bounces, newest first, by
+// the hand-written VJP of the sampler of the material it hit, the hit record
+// and the hit sphere's root.  Each bounce adds the hit sphere's p0 and
+// radius terms; where m spheres' roots tie exactly at t, each takes g_t / m
+// through its own root (jnp.min's and torch.amin's split), the hit record
+// staying the hit sphere's.  The sweep ends in the VJP of the primary ray
+// (lens disk, origin_advance).  A path that the roulette or the depth limit
+// ends adds nothing.  Partials:
 //   [0:3N)       p0, sphere-major
 //   [3N:4N)      radius
 //   [4N:4N+14)   position(3) lower_left(3) cam_x(3) cam_y(3) lens_radius
 //                origin_advance (the floats of pack_camera)
 // float32, as the replay kernel's.  A sweep recomputes a bounce's forward
-// values from the record for the recorded sphere alone, by the expressions
-// of hit_sphere and bounce (so its decisions are the forward's), and keeps
-// the scan VJP's guards: a tangent ray (disc == 0) and a tangent refraction
-// (kk == 0) take a zero derivative there.
+// values from the record by the expressions of hit_sphere and bounce (so its
+// decisions are the forward's), and keeps the scan VJP's guards: a tangent
+// ray (disc == 0) and a tangent refraction (kk == 0) take a zero derivative
+// there.
+//
+// Bound: the forward's FP32/integer work, as the replay kernel's, plus the
+// sweeps' (a bounce's VJP costs about two forward bounces: its Threefry
+// blocks, sine and cosine, square roots and divisions again).  What held the
+// first design at 7-21x its bound, by the -DPT_SIMT_PROBE sections on an
+// H100 (PERF.md, Findings): on an open scene the sweeps, 42% of
+// the warps' cycles, run in the bounce phase by the lanes that had just
+// missed while the rest of the warp waited, each as long as the longest
+// path among them; on a closed one the record, 7 scattered 4-byte stores a
+// bounce; and 112 registers (512 threads an SM).
 //
 // Design.  The replay kernel's skeleton (csrc/replay.cu): a persistent grid,
 // one live path per thread, a refill phase the warp's idle lanes enter
 // together, warp-owned chunks of 32 items (pt::item_at), the partials of a
 // thread in shared memory laid out [k][thread] in a compile-time bucket of N
-// (8, 16, 40).  The record lives in device memory, [max_depth][7][threads of
-// the grid] (7 words: o, d, hit id), sized by the grid, not the items: a
-// thread's next path overwrites its last.  A sweep runs in the lane whose
-// path missed, while the warp's other lanes wait for it.
+// (8, 16, 40).  Beside it:
+//   * The record: [grid threads][max_depth][8] float32 in device memory,
+//     sized by the grid, not the items (a thread's next path overwrites its
+//     last).  A bounce is one 32-byte sector of its lane, two float4 stores
+//     (o.xyz d.x before the bounce; d.yz, hit id, tie count after it, and
+//     only if the path goes on) and two float4 loads when swept; a lane's
+//     bounces fill its 128-byte lines in turn.  [max_depth][threads][8],
+//     whose lanes at one depth share lines, measured 0.6-5% slower on a
+//     box chunk in three runs on an H100.
+//   * A sweep phase, the counterpart of the refill phase.  A lane whose
+//     path ends on a miss computes its seed and parks, its path state in
+//     registers and its adjoints (go, gd) in shared memory.  When
+//     kSweepMin lanes of the warp have parked, or no lane is alive, every
+//     parked lane sweeps one bounce back at once, each its own bounce; a
+//     lane done with bounce 0 takes the primary ray's VJP and goes idle,
+//     the others stay parked for the next sweep phase.  A parked lane
+//     is refilled only after its sweep: its record is its own.  One bounce
+//     a phase keeps the lanes of a phase busy whatever their paths'
+//     lengths.  In two runs on an H100, against 16 parked lanes and one
+//     bounce: whole paths in lockstep measured 35-52% slower on open
+//     chunks, 2 bounces a phase 29-52%, 6 parked lanes 24-28%, 12 and 24
+//     lanes 0.4-5.5%; a closed chunk, with no sweep, within 2%.  Those
+//     designs were dropped.
+//   * The sweep phase sits outside the bounce phase's code, and a parked
+//     lane clears what its path no longer reads, so the two do not share a
+//     live range: 94 registers, 640 threads an SM.  kMinBlocks holds that
+//     residency; a build at 512 threads an SM (108 registers) measured 7%
+//     slower on a simple chunk and 5% on a box one.
 //
 // Reduction, deterministic, as the replay kernel's: no atomics on floats,
-// each block writes one row of a [blocks, 4N+14] buffer in a fixed order,
-// which the wrapper sums in plain torch.  Two launches on the same inputs
-// give bitwise-equal rows.
+// each thread adds its paths' partials in its own item order, and each
+// block writes one row of a [blocks, 4N+14] buffer in a fixed order, which
+// the wrapper sums in plain torch.  Two launches on the same inputs give
+// bitwise-equal rows.
 //
 // Counters: segments, most bounce phases of a warp, bounces swept back,
-// bounce phases summed over warps, paths swept.
+// bounce phases summed over warps, paths swept, swept bounces whose root
+// tied; with -DPT_SIMT_PROBE the probe's sums after them.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "step_math.cuh"
 
 namespace {
 
 constexpr int kMaxSpheres = 40;  // MAX_REPLAY_SPHERES in ops/kernels/replay.py
-constexpr int kRecWords = 7;     // a bounce's record: o, d, hit id
 constexpr int kCamPartials = 14;
+constexpr int kCounterWords = 6;  // GEOMETRY_COUNTER_WORDS in ops/kernels/geometry_replay.py
+constexpr unsigned int kFull = 0xffffffffu;
 
 // Threads a block by bucket, as the replay kernel's.
 template <int NB>
 constexpr int kBlockThreads = NB <= 16 ? 128 : 64;
 
+// Resident blocks an SM asked of the compiler: 5 blocks of 128 threads
+// leave a thread 96 registers (640 threads an SM, the replay kernel's
+// residency); the 40-sphere bucket keeps the compiler's own choice.
+template <int NB>
+constexpr int kMinBlocks = NB <= 16 ? 5 : 1;
+
+// A warp's sweep phase starts when this many of its lanes have parked (or
+// none is alive); measured on an H100 against 6, 12 and 24 (the design
+// comment above).
+constexpr int kSweepMin = 16;
+
+// Floats of shared memory a block of bucket NB needs for n spheres: the
+// scene, the partials and a parked path's adjoints, [k][thread].
 template <int NB>
 constexpr size_t smem_floats(int n_spheres) {
   return static_cast<size_t>(pt::scene_floats(n_spheres)) +
-         (4 * NB + kCamPartials) * kBlockThreads<NB>;
+         (4 * NB + kCamPartials + 6) * kBlockThreads<NB>;
 }
 
 struct V3 {
@@ -77,6 +132,12 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 // VJP of y = x * inv, inv = 1/sqrt(x.x) (rsqrt_safe of a positive length).
 __device__ __forceinline__ V3 normalize_vjp(V3 x, float inv, V3 g) {
   return g * inv - x * (dot(g, x) * inv * inv * inv);
+}
+
+// This thread's record of bounce k: two float4, [grid threads][max_depth][8].
+__device__ __forceinline__ float4* record_slot(float4* rec, int k, size_t column,
+                                               int max_depth) {
+  return rec + 2 * (column * static_cast<size_t>(max_depth) + static_cast<size_t>(k));
 }
 
 // The screen coordinates and lens-disk uniforms of an item, by start_path's
@@ -108,40 +169,83 @@ __device__ __forceinline__ void camera_sample(Index item, const pt::Params& p, f
   scr_t = (py + syf * p.sub_len + jy * p.sub_len) * p.inv_h;
 }
 
-// One bounce of the sweep: the VJP of the hit bounce k of the path (input
-// ray o, d from the record, sphere h) for the adjoints (go, gd) of its
-// outputs (the next origin and direction), which it replaces by those of
-// its inputs; adds the sphere's p0 and radius terms to ``part``.
+// One sphere's root for a ray, by hit_sphere's expressions, with what its
+// VJP reads.
+struct Root {
+  V3 q;
+  float b, c, qad, add, sq, qf, t;
+  float w1, w2;  // t's weights on the two roots
+  bool tangent;
+};
+
+__device__ __forceinline__ Root root_of(const float* row, V3 o, V3 d, float a, float a_inv,
+                                        const pt::Params& p) {
+  Root f;
+  f.q = {o.x - row[0], o.y - row[1], o.z - row[2]};
+  const float qd = f.q.x * d.x + f.q.y * d.y + f.q.z * d.z;
+  f.add = row[3] * d.x + row[4] * d.y + row[5] * d.z;
+  f.b = qd + row[6] * f.add;
+  const float qq = f.q.x * f.q.x + f.q.y * f.q.y + f.q.z * f.q.z;
+  f.qad = f.q.x * row[3] + f.q.y * row[4] + f.q.z * row[5];
+  f.c = qq + row[7] * f.qad;
+  const float disc = f.b * f.b - a * f.c;
+  f.tangent = disc == 0.0f;
+  f.sq = sqrtf(disc >= 0.0f ? disc : 1.0f);
+  f.qf = -(f.b + (f.b >= 0.0f ? f.sq : -f.sq));
+  const float r1 = f.qf * a_inv;
+  const float r2 = f.qf != 0.0f ? f.c / f.qf : p.inf;
+  const float c1 = r1 >= p.eps ? r1 : p.inf, c2 = r2 >= p.eps ? r2 : p.inf;
+  f.t = disc >= 0.0f ? fminf(c1, c2) : p.inf;
+  // torch.minimum / maximum split a double root's derivative evenly.
+  f.w1 = r1 == r2 ? 0.5f : (c1 < c2 ? 1.0f : 0.0f);
+  f.w2 = 1.0f - f.w1;
+  return f;
+}
+
+// The root's VJP for its share g_t of t's adjoint: adds to the ray's
+// adjoints (go through q = o - p0, gd) and to the sphere's p0 and radius
+// partials (rows ``row_p0 + 3 h`` and ``row_r + h`` of ``part``).
 template <int T>
-__device__ __forceinline__ void bounce_vjp(V3 o, V3 d, int h, int k, uint32_t k0, uint32_t k1,
-                                           const float* table, const pt::Params& p,
+__device__ __forceinline__ void root_vjp(const Root& f, const float* row, V3 d, float a,
+                                         float a_inv, float g_t, int h, float* part, int row_p0,
+                                         int row_r, V3& go, V3& gd) {
+  const V3 ad = {row[3], row[4], row[5]};
+  const float r = row[6];
+  const float g_r1 = g_t * f.w1, g_r2 = g_t * f.w2;
+  const float g_qf = g_r1 * a_inv - g_r2 * f.c / (f.qf * f.qf);
+  float g_c = g_r2 / f.qf;
+  float g_a = -(g_r1 * f.qf) * a_inv * a_inv;
+  float g_b = -g_qf;
+  const float sign_b = f.b >= 0.0f ? 1.0f : -1.0f;
+  const float g_disc = f.tangent ? 0.0f : -sign_b * g_qf * 0.5f / f.sq;
+  g_b = g_b + 2.0f * f.b * g_disc;
+  g_a = g_a - f.c * g_disc;
+  g_c = g_c - a * g_disc;
+  const V3 g_q = d * g_b + f.q * (2.0f * g_c) + ad * (2.0f * r * g_c);
+  gd = gd + f.q * g_b + ad * (g_b * r) + d * (2.0f * g_a);
+  go = go + g_q;
+  float* gp = part + (row_p0 + 3 * h) * T;
+  gp[0] -= g_q.x;
+  gp[T] -= g_q.y;
+  gp[2 * T] -= g_q.z;
+  part[(row_r + h) * T] += g_b * f.add + 2.0f * f.qad * g_c;
+}
+
+// One bounce of the sweep: the VJP of the hit bounce k of the path (input
+// ray o, d from the record, sphere h, ``ties`` spheres at its t) for the
+// adjoints (go, gd) of its outputs (the next origin and direction), which it
+// replaces by those of its inputs; adds the spheres' p0 and radius terms to
+// ``part``.
+template <int T>
+__device__ __forceinline__ void bounce_vjp(V3 o, V3 d, int h, int ties, int k, uint32_t k0,
+                                           uint32_t k1, const float* table, const pt::Params& p,
                                            float* part, int row_p0, int row_r, V3& go, V3& gd) {
   const float* row = table + h * pt::kRowFloats;
-  const V3 p0 = {row[0], row[1], row[2]};
   const V3 ad = {row[3], row[4], row[5]};
-  const float r = row[6], r2x = row[7];
-  // ---- the root, by hit_sphere's expressions ----
-  const V3 q = o - p0;
   const float a = d.x * d.x + d.y * d.y + d.z * d.z;
   const float a_inv = 1.0f / a;
-  const float qd = q.x * d.x + q.y * d.y + q.z * d.z;
-  const float add = ad.x * d.x + ad.y * d.y + ad.z * d.z;
-  const float b = qd + r * add;
-  const float qq = q.x * q.x + q.y * q.y + q.z * q.z;
-  const float qad = q.x * ad.x + q.y * ad.y + q.z * ad.z;
-  const float c = qq + r2x * qad;
-  const float disc = b * b - a * c;
-  const bool tangent = disc == 0.0f;
-  const float sq = sqrtf(disc >= 0.0f ? disc : 1.0f);
-  const float sign_b = b >= 0.0f ? 1.0f : -1.0f;
-  const float qf = -(b + (b >= 0.0f ? sq : -sq));
-  const float r1 = qf * a_inv;
-  const float rr2 = qf != 0.0f ? c / qf : p.inf;
-  const float c1 = r1 >= p.eps ? r1 : p.inf, c2 = rr2 >= p.eps ? rr2 : p.inf;
-  const float t = fminf(c1, c2);
-  // torch.minimum / maximum split a double root's derivative evenly.
-  const float w1 = r1 == rr2 ? 0.5f : (c1 < c2 ? 1.0f : 0.0f);
-  const float w2 = 1.0f - w1;
+  const Root root = root_of(row, o, d, a, a_inv, p);
+  const float t = root.t;
 
   // ---- the hit record, by bounce's expressions ----
   const V3 center = {row[pt::kColCenter], row[pt::kColCenter + 1], row[pt::kColCenter + 2]};
@@ -231,41 +335,38 @@ __device__ __forceinline__ void bounce_vjp(V3 o, V3 d, int h, int k, uint32_t k0
   }
   g_no = g_no + g_n * fsign;
 
-  // ---- the hit record's VJP ----
+  // ---- the hit record's VJP: the center (p0 - r * ad) and t ----
   const V3 g_nr = normalize_vjp(nr, ninv, g_no);
   const V3 g_hp = go + g_nr;
   g_d = g_d + g_hp * t;
   const float g_t = dot(g_hp, d);
-
-  // ---- the root's VJP ----
-  const float g_r1 = g_t * w1, g_r2 = g_t * w2;
-  const float g_qf = g_r1 * a_inv - g_r2 * c / (qf * qf);
-  float g_c = g_r2 / qf;
-  float g_a = -(g_r1 * qf) * a_inv * a_inv;
-  float g_b = -g_qf;
-  const float g_disc = tangent ? 0.0f : -sign_b * g_qf * 0.5f / sq;
-  g_b = g_b + 2.0f * b * g_disc;
-  g_a = g_a - c * g_disc;
-  g_c = g_c - a * g_disc;
-  const float g_rad = g_b * add + 2.0f * qad * g_c;
-  const V3 g_q = d * g_b + q * (2.0f * g_c) + ad * (2.0f * r * g_c);
-  g_d = g_d + q * g_b + ad * (g_b * r) + d * (2.0f * g_a);
-
-  go = g_hp + g_q;
-  gd = g_d;
-  // p0 through q = o - p0 and the center p0 - r * ad; r through both.
   float* gp = part + (row_p0 + 3 * h) * T;
-  gp[0] += -g_nr.x - g_q.x;
-  gp[T] += -g_nr.y - g_q.y;
-  gp[2 * T] += -g_nr.z - g_q.z;
-  part[(row_r + h) * T] += g_rad + dot(g_nr, ad);
+  gp[0] -= g_nr.x;
+  gp[T] -= g_nr.y;
+  gp[2 * T] -= g_nr.z;
+  part[(row_r + h) * T] += dot(g_nr, ad);
+
+  // ---- the roots' VJPs: g_t / ties to each sphere whose root is t ----
+  const float g_share = ties > 1 ? g_t / static_cast<float>(ties) : g_t;
+  go = g_hp;
+  root_vjp<T>(root, row, d, a, a_inv, g_share, h, part, row_p0, row_r, go, g_d);
+  if (ties > 1) {
+#pragma unroll 1
+    for (int i = 0; i < p.n_spheres; ++i) {
+      if (i == h) continue;
+      const float* ri = table + i * pt::kRowFloats;
+      const Root other = root_of(ri, o, d, a, a_inv, p);
+      if (other.t == t) root_vjp<T>(other, ri, d, a, a_inv, g_share, i, part, row_p0, row_r, go, g_d);
+    }
+  }
+  gd = g_d;
 }
 
 template <typename Index, int NB>
-__global__ void __launch_bounds__(kBlockThreads<NB>)
+__global__ void __launch_bounds__(kBlockThreads<NB>, kMinBlocks<NB>)
 geometry_replay_kernel(const float* __restrict__ table, const float* __restrict__ cam,
                        const float* __restrict__ ct, float* __restrict__ rows,
-                       float* __restrict__ rec, unsigned long long* __restrict__ counters,
+                       float4* __restrict__ rec, unsigned long long* __restrict__ counters,
                        const pt::Params p) {
   constexpr int T = kBlockThreads<NB>;
   // Rows of the partials in shared memory, by bucket: p0, radius, camera.
@@ -275,12 +376,18 @@ geometry_replay_kernel(const float* __restrict__ table, const float* __restrict_
   const float* s_table = smem;
   const float* s_cam = pt::load_scene(smem, table, cam, n);
   float* part = smem + pt::scene_floats(n) + threadIdx.x;  // this thread's column
+  // A parked path's adjoints go, gd between its sweep phases: [6][T].
+  float* adj = part + kRows * T;
 #pragma unroll 1
   for (int k = 0; k < kRows; ++k) part[k * T] = 0.0f;
+#ifdef PT_SIMT_PROBE
+  pt::simt_zero();
+  const long long pt_warp_t = clock64();
+#endif
+  PT_SEC_DECL();
 
-  // This thread's record: word w of bounce k at my_rec[(k * 7 + w) * stride].
-  const size_t stride = static_cast<size_t>(gridDim.x) * T;
-  float* my_rec = rec + static_cast<size_t>(blockIdx.x) * T + threadIdx.x;
+  // This thread's place in the record.
+  const size_t column = static_cast<size_t>(blockIdx.x) * T + threadIdx.x;
 
   const Index warps = static_cast<Index>(gridDim.x) * (T / 32);
   const Index warp = static_cast<Index>(blockIdx.x) * (T / 32) + (threadIdx.x >> 5);
@@ -289,74 +396,59 @@ geometry_replay_kernel(const float* __restrict__ table, const float* __restrict_
   const Index n_items = static_cast<Index>(p.n_items);
   const unsigned int lane = threadIdx.x & 31;
 
-  bool alive = false;
+  bool alive = false, parked = false;
   Index item = 0;
   float ctx = 0.0f, cty = 0.0f, ctz = 0.0f;
   unsigned int phases = 0;          // warp-uniform
   unsigned long long segments = 0;  // warp-uniform
-  unsigned long long swept = 0, missed = 0;  // this thread's
+  unsigned int swept = 0, missed = 0, tied = 0;  // this thread's
   pt::Path s;
   while (true) {
-    const unsigned int idle = __ballot_sync(0xffffffffu, !alive);
-    unsigned int live = ~idle;
-    if (next < end && __popc(idle) >= pt::kRefillMin) {
-      const Index at = next + static_cast<Index>(__popc(idle & pt::lanes_below()));
-      const Index mine = pt::item_at<Index>(at, warp, warps);
-      next += static_cast<Index>(__popc(idle));
-      if (!alive && at < end && mine < n_items) {
-        const size_t c = static_cast<size_t>(pt::start_path<Index>(s, mine, s_cam, p));
-        ctx = ct[3 * c];
-        cty = ct[3 * c + 1];
-        ctz = ct[3 * c + 2];
-        item = mine;
-        alive = true;
-      }
-      live = __ballot_sync(0xffffffffu, alive);
-    } else if (idle == 0xffffffffu) {
-      break;
-    }
-    ++phases;
-    segments += __popc(live);
-    if (alive) {
-      const int k = s.depth;
-      float* slot = my_rec + static_cast<size_t>(k) * kRecWords * stride;
-      slot[0] = s.ox;
-      slot[stride] = s.oy;
-      slot[2 * stride] = s.oz;
-      slot[3 * stride] = s.dx;
-      slot[4 * stride] = s.dy;
-      slot[5 * stride] = s.dz;
-      float rx, ry, rz;
-      pt::BounceAux a;
-      const bool done = pt::bounce<true>(s, s_table, s_cam, p, rx, ry, rz, a);
-      slot[6 * stride] = __int_as_float(a.sidx);
-      if (done) {
-        alive = false;
-        if (a.sidx < 0) {  // a miss at bounce k: the seed, then the sweep
-          const float tcx = ctx * a.thr_x, tcy = cty * a.thr_y, tcz = ctz * a.thr_z;
-          const float w = tcx * (s_cam[16] - s_cam[13]) + tcy * (s_cam[17] - s_cam[14]) +
-                          tcz * (s_cam[18] - s_cam[15]);
-          const V3 dk = {s.dx, s.dy, s.dz};
-          const float dinv = pt::rsqrt_safe(dk.x * dk.x + dk.y * dk.y + dk.z * dk.z);
-          const float h = 0.5f * w * dinv;
-          V3 gd = dk * (-(h * dk.y * dinv * dinv));
-          gd.y = gd.y + h;
-          V3 go = {0.0f, 0.0f, 0.0f};
-          for (int j = k - 1; j >= 0; --j) {
-            const float* rj = my_rec + static_cast<size_t>(j) * kRecWords * stride;
-            const V3 o = {rj[0], rj[stride], rj[2 * stride]};
-            const V3 d = {rj[3 * stride], rj[4 * stride], rj[5 * stride]};
-            bounce_vjp<T>(o, d, __float_as_int(rj[6 * stride]), j, s.k0, s.k1, s_table, p, part,
-                          kP0, kR, go, gd);
-          }
+    const unsigned int parked_lanes = __ballot_sync(kFull, parked);
+    const unsigned int alive_lanes = __ballot_sync(kFull, alive);
+    // ---- the sweep phase: every parked lane at once ----
+    if (parked_lanes != 0u && (__popc(parked_lanes) >= kSweepMin || alive_lanes == 0u)) {
+      // A parked lane's s.depth counts the bounces it has still to sweep.
+      if (parked) {
+        PT_SEC_BEGIN();
+        // What a parked path no longer reads (its next path overwrites it),
+        // cleared so that the sweep's registers need not keep it.
+        s.ox = s.oy = s.oz = s.thx = s.thy = s.thz = s.emx = s.emy = s.emz = 0.0f;
+        ctx = cty = ctz = 0.0f;
+        V3 go = {adj[0], adj[T], adj[2 * T]}, gd = {adj[3 * T], adj[4 * T], adj[5 * T]};
+        V3 d0 = {s.dx, s.dy, s.dz};  // the primary direction once swept to bounce 0
+        if (s.depth > 0) {
+          const int j = s.depth - 1;
+          const float4* slot = record_slot(rec, j, column, p.max_depth);
+          const float4 r0 = slot[0], r1 = slot[1];
+          const V3 o = {r0.x, r0.y, r0.z};
+          d0 = {r0.w, r1.x, r1.y};
+          const int ties = __float_as_int(r1.w);
+          bounce_vjp<T>(o, d0, __float_as_int(r1.z), ties, j, s.k0, s.k1, s_table, p, part,
+                        kP0, kR, go, gd);
+          swept += 1;
+          tied += ties > 1 ? 1u : 0u;
+          s.depth = j;
+        }
+        PT_SEC_END(pt::kSecSweep);
+        if (s.depth > 0) {  // more bounces to sweep: the adjoints wait in shared memory
+          adj[0] = go.x;
+          adj[T] = go.y;
+          adj[2 * T] = go.z;
+          adj[3 * T] = gd.x;
+          adj[4 * T] = gd.y;
+          adj[5 * T] = gd.z;
+        } else {
+          PT_SEC_BEGIN();
           // The primary ray's VJP (models/camera.get_rays).
           float scr_s, scr_t, du1, du2;
           camera_sample<Index>(item, p, scr_s, scr_t, du1, du2);
-          const V3 d0 = {my_rec[3 * stride], my_rec[4 * stride], my_rec[5 * stride]};
           const V3 g_dir = gd + go * s_cam[19];
           const V3 g_off = go - g_dir;
           const float th = pt::kTwoPi * du2;
           const float g_lens = (scr_s + scr_t) * (cosf(th) * g_off.x + sinf(th) * g_off.y);
+          PT_SEC_END(pt::kSecCamera);
+          PT_SEC_BEGIN();
           float* gc = part + kCam * T;
           const V3 g_pos = go - g_dir;
           gc[0] += g_pos.x;
@@ -373,23 +465,92 @@ geometry_replay_kernel(const float* __restrict__ table, const float* __restrict_
           gc[11 * T] += g_dir.z * scr_t;
           gc[12 * T] += g_lens * sqrtf(du1);
           gc[13 * T] += dot(go, d0);
-          swept += static_cast<unsigned long long>(k);
+          PT_SEC_END(pt::kSecAccumulate);
           missed += 1;
+          parked = false;
+        }
+      }
+      continue;
+    }
+
+    // ---- the refill phase ----
+    const unsigned int idle = ~(parked_lanes | alive_lanes);
+    unsigned int live = alive_lanes;
+    if (next < end && __popc(idle) >= pt::kRefillMin) {
+      const Index at = next + static_cast<Index>(__popc(idle & pt::lanes_below()));
+      const Index mine = pt::item_at<Index>(at, warp, warps);
+      next += static_cast<Index>(__popc(idle));
+      if (!alive && !parked && at < end && mine < n_items) {
+        PT_SEC_BEGIN();
+        const size_t c = static_cast<size_t>(pt::start_path<Index>(s, mine, s_cam, p));
+        ctx = ct[3 * c];
+        cty = ct[3 * c + 1];
+        ctz = ct[3 * c + 2];
+        item = mine;
+        alive = true;
+        PT_SEC_END(pt::kSecRegen);
+      }
+      live = __ballot_sync(kFull, alive);
+    } else if (alive_lanes == 0u) {
+      break;  // nothing parked (else the sweep phase ran), nothing left to start
+    }
+
+    // ---- the bounce phase ----
+    ++phases;
+    segments += __popc(live);
+    if (alive) {
+      PT_SEC_BEGIN();
+      float4* slot = record_slot(rec, s.depth, column, p.max_depth);
+      slot[0] = make_float4(s.ox, s.oy, s.oz, s.dx);
+      const float dy = s.dy, dz = s.dz;
+      PT_SEC_END(pt::kSecRecord);
+      float rx, ry, rz;
+      pt::BounceAux a;
+      const bool done = pt::bounce<true>(s, s_table, s_cam, p, rx, ry, rz, a);
+      if (!done) {  // only a bounce the path goes on from is ever swept
+        PT_SEC_BEGIN();
+        slot[1] = make_float4(dy, dz, __int_as_float(a.sidx), __int_as_float(a.ties));
+        PT_SEC_END(pt::kSecRecord);
+      } else {
+        alive = false;
+        if (a.sidx < 0) {  // a miss: the seed now, the sweep in sweep phases
+          PT_SEC_BEGIN();
+          parked = true;
+          const float w = ctx * s.thx * (s_cam[16] - s_cam[13]) +
+                          cty * s.thy * (s_cam[17] - s_cam[14]) +
+                          ctz * s.thz * (s_cam[18] - s_cam[15]);
+          const float dinv = pt::rsqrt_safe(s.dx * s.dx + s.dy * s.dy + s.dz * s.dz);
+          const float h = 0.5f * w * dinv;
+          const float gdy = -(h * s.dy * dinv * dinv);
+          adj[0] = 0.0f;
+          adj[T] = 0.0f;
+          adj[2 * T] = 0.0f;
+          adj[3 * T] = s.dx * gdy;
+          adj[4 * T] = s.dy * gdy + h;
+          adj[5 * T] = s.dz * gdy;
+          PT_SEC_END(pt::kSecCamera);
         }
       }
     }
   }
+#ifdef PT_SIMT_PROBE
+  pt::simt_end(pt::kSecWarp, pt_warp_t);
+  pt::simt_flush(counters + (kCounterWords - pt::kSimtBase));
+#endif
 
+  unsigned long long warp_swept = swept, warp_missed = missed, warp_tied = tied;
   for (int off = 16; off > 0; off >>= 1) {
-    swept += __shfl_down_sync(0xffffffffu, swept, off);
-    missed += __shfl_down_sync(0xffffffffu, missed, off);
+    warp_swept += __shfl_down_sync(kFull, warp_swept, off);
+    warp_missed += __shfl_down_sync(kFull, warp_missed, off);
+    warp_tied += __shfl_down_sync(kFull, warp_tied, off);
   }
   if (lane == 0) {
     atomicAdd(&counters[0], segments);
     atomicMax(&counters[1], static_cast<unsigned long long>(phases));
-    atomicAdd(&counters[2], swept);
+    atomicAdd(&counters[2], warp_swept);
     atomicAdd(&counters[3], static_cast<unsigned long long>(phases));
-    atomicAdd(&counters[4], missed);
+    atomicAdd(&counters[4], warp_missed);
+    atomicAdd(&counters[5], warp_tied);
   }
 
   // The block's row, as the replay kernel's: output k is the sum of a row of
@@ -402,12 +563,12 @@ geometry_replay_kernel(const float* __restrict__ table, const float* __restrict_
     float v = 0.0f;
 #pragma unroll
     for (int t = 0; t < T; t += 32) v += all[kb * T + t + lane];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
     if (lane == 0) rows[static_cast<size_t>(blockIdx.x) * m_total + k] = v;
   }
 }
 
-using GeometryFn = void (*)(const float*, const float*, const float*, float*, float*,
+using GeometryFn = void (*)(const float*, const float*, const float*, float*, float4*,
                             unsigned long long*, const pt::Params);
 
 struct Launch {
@@ -472,20 +633,21 @@ int pt_geometry_grid(int n_spheres, long long n_items, int index_bits, long long
 // Launches the geometry replay on ``stream`` with ``blocks`` blocks
 // (pt_geometry_grid, asked with the same ``index_bits``).  ``ct`` is
 // [n_cells, 3] float32, ``rows`` [blocks, 4N+14] float32 (every row is
-// written), ``rec`` at least max_depth * 7 * blocks * threads float32 of
-// scratch, ``counters`` 5 zeroed uint64 words.  Returns cudaGetLastError()
-// after the launch.
+// written), ``rec`` at least max_depth * 8 * blocks * threads float32 of
+// scratch, 32-byte aligned, ``counters`` 6 zeroed uint64 words.  Returns
+// cudaGetLastError() after the launch.
 int pt_geometry_replay(const float* table, const float* cam, const float* ct, float* rows,
                        float* rec, unsigned long long* counters, const pt::Params* params,
                        int index_bits, long long blocks, void* stream) {
   const pt::Params p = *params;
-  if (bad_args(p.n_spheres, index_bits) || blocks < 1)
+  if (bad_args(p.n_spheres, index_bits) || blocks < 1 || reinterpret_cast<std::uintptr_t>(rec) % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch l = pick(index_bits, p.n_spheres);
   const cudaError_t err = allow_smem(l);
   if (err != cudaSuccess) return static_cast<int>(err);
   l.kernel<<<static_cast<unsigned int>(blocks), l.threads, l.smem,
-             static_cast<cudaStream_t>(stream)>>>(table, cam, ct, rows, rec, counters, p);
+             static_cast<cudaStream_t>(stream)>>>(table, cam, ct, rows,
+                                                  reinterpret_cast<float4*>(rec), counters, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,7 +32,9 @@
 //
 // bounce<true> also fills a BounceAux with the internals the replay
 // backward consumes (csrc/replay.cu; make_step_math(with_aux=True) in the
-// JAX package); bounce<false>, the forward kernel's, compiles without them.
+// JAX package) and the count of an exact tie of roots that the geometry
+// replay reads (csrc/geometry_replay.cu); bounce<false>, the forward
+// kernel's, compiles without them.
 
 #pragma once
 
@@ -60,7 +62,10 @@ enum Section {
   kSecDielectric,  // the Schlick lottery and the refraction
   kSecUpdate,      // move, damp, count; the depth-limit exit
   kSecRetire,      // a finished path's result written out
-  kSecAccumulate,  // the replay kernel's partials
+  kSecAccumulate,  // the replay kernels' partials
+  kSecRecord,      // the geometry replay's record of a bounce
+  kSecSweep,       // the geometry replay's sweep back through a path's bounces
+  kSecCamera,      // the geometry replay's seed and primary-ray VJP
   kSecWarp,        // a warp's whole stay in the kernel (executions = warps)
   kSections
 };
@@ -138,6 +143,7 @@ struct Path {
 // hit is sidx >= 0 and die_miss its negation.
 struct BounceAux {
   int sidx;                  // hit sphere index, -1 on a miss
+  int ties;                  // spheres whose root equals the hit's t (hit only)
   float thr_x, thr_y, thr_z;  // throughput before this bounce's update
   float eh_x, eh_y, eh_z;     // the hit sphere's emission (hit only)
   float sky_x, sky_y, sky_z;  // background radiance (miss only)
@@ -261,10 +267,13 @@ __device__ __forceinline__ Index start_path(Path& s, Index item, const float* ca
 
 // The anchor-point quadratic of one sphere (its shared row) against the ray,
 // and the closest-hit update: strict <, so the lowest index wins a tie.
+// With kTies, ``ties`` counts the spheres whose root equals t_best (< inf),
+// the hit sphere included: the geometry replay splits t's adjoint among them.
+template <bool kTies>
 __device__ __forceinline__ void hit_sphere(const float* row, int j, float ox, float oy, float oz,
                                            float dx, float dy, float dz, float a_quad,
                                            float a_inv, const Params& p, float& t_best,
-                                           int& best) {
+                                           int& best, int& ties) {
   const float4 ra = *reinterpret_cast<const float4*>(row);      // p0, anchor.x
   const float4 rb = *reinterpret_cast<const float4*>(row + 4);  // anchor.yz, r, 2r
   const float qx = ox - ra.x, qy = oy - ra.y, qz = oz - ra.z;
@@ -296,6 +305,9 @@ __device__ __forceinline__ void hit_sphere(const float* row, int j, float ox, fl
   if (root < t_best) {
     t_best = root;
     best = j;
+    if constexpr (kTies) ties = 1;
+  } else if constexpr (kTies) {
+    if (root == t_best && root < p.inf) ++ties;
   }
 }
 
@@ -369,15 +381,16 @@ __device__ __forceinline__ bool bounce(Path& s, const float* table, const float*
   const float a_quad = dx * dx + dy * dy + dz * dz;
   const float a_inv = 1.0f / a_quad;
   float t_best = p.inf;
-  int best = -1;
+  int best = -1, ties = 0;
   // One sphere a trip: groups of 2 to 8 spheres without a branch between
   // them, and a loop unrolled whole, measured no faster (PERF.md, Findings).
   for (int j = 0; j < p.n_spheres; ++j)
-    hit_sphere(table + j * kRowFloats, j, ox, oy, oz, dx, dy, dz, a_quad, a_inv, p, t_best,
-               best);
+    hit_sphere<kAux>(table + j * kRowFloats, j, ox, oy, oz, dx, dy, dz, a_quad, a_inv, p, t_best,
+                     best, ties);
 
   if constexpr (kAux) {
     aux.sidx = best;
+    aux.ties = ties;
     aux.thr_x = s.thx;
     aux.thr_y = s.thy;
     aux.thr_z = s.thz;

@@ -26,9 +26,10 @@ piece of ``ops/integrator.bounce_step``:
 which adds the hit sphere's p0 and radius terms, and ends in the VJP of the
 primary ray (``models/camera.get_rays``: the lens disk and origin_advance).
 The guards of the scan VJP are kept: a tangent ray (disc == 0) and a tangent
-refraction (kk == 0) take a zero derivative there.  One difference: an
-exact tie between two spheres' roots gives the whole gradient to the sphere
-the forward picks (the lowest index), where ``torch.amin`` splits it.
+refraction (kk == 0) take a zero derivative there.  Where m spheres' roots
+tie exactly at t, t's adjoint goes g_t / m to each of them through its own
+root, as ``amin`` (and ``jnp.min``) split it; the hit record and the normal
+stay the hit sphere's (the lowest index), as the forward's.
 
 The sums are kept as one vector of ``4N+14`` partials, the layout of the
 CUDA kernel (``ops/kernels/geometry_replay.py``):
@@ -57,7 +58,7 @@ import torch
 
 from . import rng as rng_ops
 from .integrator import bounce_step, init_state
-from .intersect import rsqrt_safe
+from .intersect import rsqrt_safe, sphere_roots
 
 # The camera floats the partials hold (module docstring): position(3)
 # lower_left(3) cam_x(3) cam_y(3) lens_radius origin_advance.
@@ -174,14 +175,17 @@ def dielectric_forward(d, n, front, u_a, ior):
 
 def bounce_forward(spheres, o, d, hid, u, *, epsilon, inf):
     """The values of one hit bounce that its adjoint reads, recomputed for
-    the hit sphere ``hid`` alone by the expressions of ``intersect_scene``,
+    the hit sphere ``hid`` by the expressions of ``intersect_scene``,
     ``hit_record`` and ``scatter``, in the rays' dtype.  ``u`` [B,4] are the
     bounce's uniforms (``ops/rng.bounce_uniforms``).  Returns a namespace of
-    tensors (the hit's, and ``root``, ``diffuse``, ``dielectric``);
-    ``cast_forward`` takes its floats to the adjoint's dtype."""
+    tensors (the hit's, and ``root``, ``diffuse``, ``dielectric``, and
+    ``tied`` [B,N], the spheres whose root equals t, with their count
+    ``ties``); ``cast_forward`` takes its floats to the adjoint's dtype."""
     dt = o.dtype
     p0, ad, r = spheres.p0[hid].to(dt), spheres.anchor_dir[hid].to(dt), spheres.radius[hid].to(dt)
     root = root_forward(o, d, p0, ad, r, epsilon=epsilon, inf=inf)
+    roots = sphere_roots(spheres, o, d, epsilon=epsilon, inf=inf)
+    tied = roots == roots.gather(1, hid[:, None])
     center = p0 - _col(r) * ad
     nr = o + _col(root.t) * d - center
     ninv = rsqrt_safe(_dot(nr, nr))
@@ -191,7 +195,8 @@ def bounce_forward(spheres, o, d, hid, u, *, epsilon, inf):
     n = no * _col(fsign)
     u_a, u_b = u[:, 1].to(dt), u[:, 2].to(dt)
     return SimpleNamespace(d=d, t=root.t, ad=ad, nr=nr, ninv=ninv, no=no, fsign=fsign,
-                           mat=spheres.material[hid].long(), root=root,
+                           mat=spheres.material[hid].long(), root=root, hid=hid, tied=tied,
+                           ties=tied.sum(dim=1),
                            diffuse=diffuse_forward(n, u_a, u_b),
                            dielectric=dielectric_forward(d, n, front, u_a, spheres.ior))
 
@@ -286,8 +291,10 @@ def bounce_vjp(f, go, gd):
     """VJP of one hit bounce, (o, d, p0[h], r[h]) -> (hit point, new
     direction), for the adjoints ``go``, ``gd`` of its outputs.  ``f`` is
     ``bounce_forward``'s namespace in the adjoint's dtype.  Only the sampler
-    of the material that was hit is differentiated.  Returns (g_o, g_d,
-    g_p0 [B,3], g_r [B])."""
+    of the material that was hit is differentiated.  The hit sphere's root
+    takes its share of t's adjoint, g_t / ``f.ties``.  Returns (g_o, g_d,
+    g_p0 [B,3], g_r [B], g_share [B]): a ray whose root ties with other
+    spheres' passes g_share to ``tie_vjp``."""
     zero = torch.zeros_like(gd)
     spec_d, spec_no = specular_vjp(f.d, f.no, gd)
     refr_d, refr_n = refract_vjp(f.dielectric, gd)
@@ -298,9 +305,34 @@ def bounce_vjp(f, go, gd):
     g_d = torch.where(diffuse, zero, torch.where(refracted, refr_d, spec_d))
     g_no = torch.where(diffuse | refracted, zero, spec_no) + g_n * _col(f.fsign)
     g_o, g_d_hit, g_t, g_center = hit_record_vjp(f, go, g_no)
-    g_q, g_d_root, g_r = root_vjp(f.root, g_t)
+    g_share = g_t / f.ties.to(g_t.dtype)
+    g_q, g_d_root, g_r = root_vjp(f.root, g_share)
     return (g_o + g_q, g_d + g_d_hit + g_d_root, g_center - g_q,
-            g_r - _dot(g_center, f.ad))
+            g_r - _dot(g_center, f.ad), g_share)
+
+
+def tie_vjp(spheres, o, d, f, g_share, *, epsilon, inf):
+    """The root VJPs of the spheres that tie with a ray's hit sphere (``f``
+    from ``bounce_forward``; rays ``o``, ``d`` in their dtype): each takes
+    ``g_share`` through its own root, recomputed in the rays' dtype.
+    Returns (g_o, g_d [B,3], g_sphere [N,4]: p0 xyz and radius summed over
+    the rays), in ``g_share``'s dtype."""
+    acc, n = g_share.dtype, f.tied.shape[1]
+    g_o = torch.zeros(o.shape, dtype=acc, device=o.device)
+    g_d = torch.zeros_like(g_o)
+    g_sphere = torch.zeros((n, 4), dtype=acc, device=o.device)
+    hit = torch.zeros_like(f.tied)
+    hit[torch.arange(f.tied.shape[0], device=o.device), f.hid] = True
+    ray, j = torch.nonzero(f.tied & ~hit, as_tuple=True)
+    if ray.numel():
+        dt = o.dtype
+        rf = root_forward(o[ray], d[ray], spheres.p0[j].to(dt), spheres.anchor_dir[j].to(dt),
+                          spheres.radius[j].to(dt), epsilon=epsilon, inf=inf)
+        g_q, g_d_root, g_r = root_vjp(cast_forward(rf, acc), g_share[ray])
+        g_o.index_add_(0, ray, g_q)
+        g_d.index_add_(0, ray, g_d_root)
+        g_sphere.index_add_(0, j, torch.cat([-g_q, _col(g_r)], dim=1))
+    return g_o, g_d, g_sphere
 
 
 def miss_seed(d, w):
@@ -339,9 +371,10 @@ def geometry_items(spheres, camera, origins, directions, keys, screen, ct, *, ma
     paths' item keys; ``ct`` [B,3] their cotangents.  The forward is
     ``bounce_step`` in the rays' dtype, recording each bounce's input ray
     and hit id; the sweep runs for the paths that ended on a miss.  Returns
-    (partials, {'segments', 'depth', 'missed', 'sweep_bounces'}):
-    'sweep_bounces' is the bounces the sweep went back through (a missed
-    path's segments less its miss)."""
+    (partials, {'segments', 'depth', 'missed', 'sweep_bounces',
+    'tied_bounces'}): 'sweep_bounces' is the bounces the sweep went back
+    through (a missed path's segments less its miss), 'tied_bounces' those
+    of them whose hit sphere's root tied with another's."""
     dt, dev, acc = origins.dtype, origins.device, acc_dtype
     n = spheres.radius.shape[0]
     kw = dict(rr_depth=rr_depth, epsilon=epsilon, inf=inf)
@@ -375,6 +408,7 @@ def geometry_items(spheres, camera, origins, directions, keys, screen, ct, *, ma
     gd = torch.zeros_like(go)
     gp = torch.zeros((n, 4), dtype=acc, device=dev)  # p0 xyz, radius
     sphere_ids = torch.arange(n, device=dev)
+    tied_bounces = 0
     for k in range(depth - 1, -1, -1):
         at = miss_at == k
         gd = torch.where(_col(at), seed, gd)
@@ -383,12 +417,19 @@ def geometry_items(spheres, camera, origins, directions, keys, screen, ct, *, ma
             continue
         u = rng_ops.bounce_uniforms(keys[0][idx], keys[1][idx], k)
         hid = rec_h[k][idx]
-        fw = bounce_forward(spheres, rec_o[k][idx], rec_d[k][idx], hid, u, epsilon=epsilon,
-                            inf=inf)
-        g_o, g_d, g_p0, g_r = bounce_vjp(cast_forward(fw, acc), go[idx], gd[idx])
-        go[idx], gd[idx] = g_o, g_d
+        o_k, d_k = rec_o[k][idx], rec_d[k][idx]
+        fw = bounce_forward(spheres, o_k, d_k, hid, u, epsilon=epsilon, inf=inf)
+        g_o, g_d, g_p0, g_r, g_share = bounce_vjp(cast_forward(fw, acc), go[idx], gd[idx])
         onehot = (hid[:, None] == sphere_ids[None, :]).to(acc)
         gp += onehot.T @ torch.cat([g_p0, _col(g_r)], dim=1)
+        n_tied = int((fw.ties > 1).sum())
+        if n_tied:
+            tied_bounces += n_tied
+            t_o, t_d, t_sphere = tie_vjp(spheres, o_k, d_k, fw, g_share, epsilon=epsilon,
+                                         inf=inf)
+            g_o, g_d = g_o + t_o, g_d + t_d
+            gp += t_sphere
+        go[idx], gd[idx] = g_o, g_d
     s, t, u4 = screen
     swept = torch.nonzero(miss_at >= 0).squeeze(1)
     g_cam = camera_vjp(camera, s[swept].to(acc), t[swept].to(acc), u4[swept, 2].to(acc),
@@ -397,7 +438,7 @@ def geometry_items(spheres, camera, origins, directions, keys, screen, ct, *, ma
     missed = int(swept.numel())
     sweep_bounces = int(miss_at[swept].sum()) if missed else 0
     return partials, {"segments": segments, "depth": depth, "missed": missed,
-                      "sweep_bounces": sweep_bounces}
+                      "sweep_bounces": sweep_bounces, "tied_bounces": tied_bounces}
 
 
 def geometry_grads_from_partials(scene, partials):

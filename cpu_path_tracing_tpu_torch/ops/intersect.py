@@ -29,12 +29,10 @@ def rsqrt_safe(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.sqrt(torch.where(x > 0, x, torch.ones_like(x)))
 
 
-def intersect_scene(scene, origins, directions, epsilon=1e-4, inf=1e20):
-    """Intersect a ray batch against every sphere.
-
-    ``origins``, ``directions``: [B,3] (directions need not be normalized).
-    Returns ``t`` [B] (``inf`` on a miss), ``hit_id`` [B] int64 (first index
-    on ties) and ``hit`` [B] bool."""
+def sphere_roots(scene, origins, directions, epsilon=1e-4, inf=1e20):
+    """Each sphere's root for each ray, [B,N]: the nearest root >= epsilon,
+    ``inf`` where there is none.  ``origins``, ``directions``: [B,3]
+    (directions need not be normalized)."""
     r = scene.radius[None, :]
     p0, ad = scene.p0, scene.anchor_dir
     ox, oy, oz = origins[:, 0:1], origins[:, 1:2], origins[:, 2:3]
@@ -69,8 +67,15 @@ def intersect_scene(scene, origins, directions, epsilon=1e-4, inf=1e20):
     inf_t = torch.full_like(t_near, inf)
     # src/sphere.cpp:19-28: near root if >= epsilon, else far root, else miss.
     root = torch.where(t_near >= epsilon, t_near, torch.where(t_far >= epsilon, t_far, inf_t))
-    root = torch.where(has_root, root, inf_t)
+    return torch.where(has_root, root, inf_t)
 
+
+def intersect_scene(scene, origins, directions, epsilon=1e-4, inf=1e20):
+    """Intersect a ray batch against every sphere (``sphere_roots``).
+
+    Returns ``t`` [B] (``inf`` on a miss), ``hit_id`` [B] int64 (first index
+    on ties) and ``hit`` [B] bool."""
+    root = sphere_roots(scene, origins, directions, epsilon=epsilon, inf=inf)
     # amin splits a tie's gradient evenly, as jnp.min does (torch.min(dim)
     # would send all of it to the returned index); argmin is the first index.
     t = root.amin(dim=-1)

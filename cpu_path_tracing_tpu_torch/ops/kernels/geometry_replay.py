@@ -15,18 +15,21 @@ persistent grid, one live path a thread over warp-owned chunks of 32 items
 ``start_path`` of ``csrc/step_math.cuh``, so its decisions are the forward
 kernel's, and its partials in shared memory ``[k][thread]``, reduced per
 block in a fixed order to ``[blocks, 4N+14]`` rows that the wrapper sums in
-float64.  Each bounce stores its input ray and hit id (7 words) in a
-scratch record of ``[max_depth][7][grid threads]`` floats in device memory,
-sized by the grid, not the items (0.19 GB at depth 100 for the 8-sphere
-bucket's 67,584 threads on an H100); a path that
-ends on a miss then sweeps its record back, recomputing each bounce's
-forward values for the recorded sphere alone.  It takes what the replay
-kernel takes (``replay_kernel_takes``: float32, uniform jitter, 1..40
-spheres).
+float64.  Each bounce stores its input ray, hit id and tie count (8 words,
+one 32-byte sector) in a scratch record of ``[grid threads][max_depth][8]``
+floats in device memory, sized by the grid, not the items (0.27 GB at
+depth 100 for the 8-sphere bucket's 84,480 threads on an H100).  A path
+that ends on a miss parks and sweeps its record back one bounce in each
+sweep phase its warp runs, recomputing each bounce's forward values from
+the record (every sphere's root where the hit's tied).  It takes what the
+replay kernel takes (``replay_kernel_takes``: float32, uniform jitter,
+1..40 spheres).
 
 Stats: ``segments``, ``iters``, ``lanes`` and ``phases`` are those of the
-replay kernel; ``missed`` counts the paths that ended on a miss (the ones
-swept) and ``sweep_bounces`` the bounces their sweeps went back through.
+replay kernel (bounce phases; sweep phases are not counted); ``missed``
+counts the paths that ended on a miss (the ones swept), ``sweep_bounces``
+the bounces their sweeps went back through and ``tied_bounces`` those of
+them whose hit sphere's root tied with another sphere's.
 """
 
 from __future__ import annotations
@@ -58,10 +61,11 @@ from .replay import _check_ct, check_replay_config
 # of every item of a batch.
 REFERENCE_CHUNK = 1 << 18
 # Zeroed int64 words a launch counts in: segments, iters, sweep bounces,
-# phases, missed paths.
-GEOMETRY_COUNTER_WORDS = 5
-# Words of a bounce's record: the input origin and direction, the hit id.
-RECORD_WORDS = 7
+# phases, missed paths, tied bounces swept.
+GEOMETRY_COUNTER_WORDS = 6
+# Words of a bounce's record: the input origin and direction, the hit id and
+# the tie count.
+RECORD_WORDS = 8
 
 
 def geometry_replay_reference(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells: int,
@@ -76,7 +80,7 @@ def geometry_replay_reference(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells
     spheres, camera = _unpack(table, cam, ior)
     dt, dev = table.dtype, table.device
     total = torch.zeros(n_geometry_partials(table.shape[0]), dtype=torch.float64, device=dev)
-    stats = {"segments": 0, "iters": 0, "missed": 0, "sweep_bounces": 0}
+    stats = {"segments": 0, "iters": 0, "missed": 0, "sweep_bounces": 0, "tied_bounces": 0}
     for i0 in range(0, n_items, REFERENCE_CHUNK):
         item = torch.arange(i0, min(i0 + REFERENCE_CHUNK, n_items), dtype=torch.int64,
                             device=dev)
@@ -87,7 +91,7 @@ def geometry_replay_reference(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells
                                   epsilon=cfg.epsilon, inf=cfg.inf, acc_dtype=torch.float64)
         total += part
         stats["iters"] += st["depth"]
-        for k in ("segments", "missed", "sweep_bounces"):
+        for k in ("segments", "missed", "sweep_bounces", "tied_bounces"):
             stats[k] += st[k]
     return total, {**stats, "lanes": min(REFERENCE_CHUNK, n_items)}
 
@@ -140,7 +144,8 @@ def geometry_replay(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells: int, n_i
         rows = torch.zeros((max(blocks.value, 1), m), dtype=torch.float32, device=table.device)
         if n_items:
             # Written before it is read; torch's caching allocator hands the
-            # same block back to the next launch of this size.
+            # same block back to the next launch of this size, 512-byte
+            # aligned (the kernel needs 32).
             rec = torch.empty(max(cfg.max_depth, 1) * RECORD_WORDS * blocks.value * threads.value,
                               dtype=torch.float32, device=table.device)
             stream = torch.cuda.current_stream().cuda_stream
@@ -153,7 +158,8 @@ def geometry_replay(table, cam, dyn, ct, *, cfg: RenderConfig, n_cells: int, n_i
             geometry_replay.launches += 1
     return rows.sum(dim=0, dtype=torch.float64), {
         "segments": counters[0], "iters": counters[1], "lanes": blocks.value * threads.value,
-        "phases": counters[3], "missed": counters[4], "sweep_bounces": counters[2]}
+        "phases": counters[3], "missed": counters[4], "sweep_bounces": counters[2],
+        "tied_bounces": counters[5]}
 
 
 geometry_replay.launches = 0

@@ -167,20 +167,35 @@ def geometry_path_ops() -> OpCounts:
     return OpCounts(simple=105, threefry=2, sqrt=2, div=5, sincos=2)
 
 
+def geometry_tie_ops() -> OpCounts:
+    """What a swept bounce whose root tied adds at the least: one more
+    sphere (m >= 2 tie; the kernel's count does not carry m) takes a share
+    of t's adjoint (a division), its root again (``pt::hit_sphere``'s
+    quadratic and root choice, as ``segment_ops`` counts it: 48, a square
+    root, a division) and its root's VJP with its partials (75, three
+    divisions).  Which spheres tie the forward's intersect already found;
+    the kernel's recompute of every other sphere's root is its own cost,
+    not the function's."""
+    return OpCounts(simple=123, sqrt=1, div=5)
+
+
 def geometry_ops(n_spheres: int, segments: int, n_items: int, sweep_bounces: int,
-                 missed: int) -> OpCounts:
+                 missed: int, tied_bounces: int = 0) -> OpCounts:
     """The geometry replay kernel's operations: the forward render's
     (``render_ops``) and the sweeps that this run's data needed: the
-    bounces swept back and the paths that ended on a miss."""
+    bounces swept back, the paths that ended on a miss and the swept
+    bounces whose root tied."""
     return (render_ops(n_spheres, segments, n_items)
             .plus(geometry_sweep_ops().times(sweep_bounces))
-            .plus(geometry_path_ops().times(missed)))
+            .plus(geometry_path_ops().times(missed))
+            .plus(geometry_tie_ops().times(tied_bounces)))
 
 
-def geometry_record_bytes(segments: int, sweep_bounces: int) -> int:
-    """The geometry replay's record traffic: 7 words stored a segment and
-    loaded a bounce swept back."""
-    return 28 * (segments + sweep_bounces)
+def geometry_record_bytes(segments: int, sweep_bounces: int, paths: int) -> int:
+    """The geometry replay's record traffic: one 32-byte sector (8 words)
+    stored a segment, of which a path's last segment, never swept, stores
+    its first 16 bytes only, and loaded a bounce swept back."""
+    return 32 * (segments + sweep_bounces) - 16 * paths
 
 
 def bound_ms(nbytes: float, issues: float) -> tuple[float, str]:

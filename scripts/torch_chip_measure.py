@@ -3,7 +3,7 @@
 
     python3 scripts/torch_chip_measure.py
         [--part build|fmad|profile|scenes|train|step|probe|stream|simt|designs|geometry|
-                geometry_step|sharded|multicard|all]
+                geometry_designs|geometry_step|sharded|multicard|all] [--baseline DIR]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
@@ -53,14 +53,17 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   round: least, median and greatest ms and the median's GB/s, fastest first.
 - simt: the render kernels measuring themselves (the machine has no ncu or
   nsys).  Builds the kernels with ``-DPT_SIMT_PROBE`` (the sections of
-  ``csrc/step_math.cuh``) and launches the forward kernel on the main path
-  (disco 1024x768, 32 spp, depth 100) and on one chunk of the production
-  inverse step (box 400x400, 64 spp, 131,072 cells), and the replay kernel
-  on that chunk.  Per section: the warp-level executions, the active lanes,
-  the SIMT efficiency (lanes / (32 x executions)), the SM cycles warps
-  spent there and their share of the warps' whole stay in the kernel; then
-  the launch's segments, occupancy and ms with the probe and, from the
-  production build, without it.  Not part of ``all``.
+  ``csrc/step_math.cuh``; the geometry replay's record, sweep and camera
+  VJP too) and launches the forward kernel on the main path (disco
+  1024x768, 32 spp, depth 100) and on one chunk of the production inverse
+  step (box 400x400, 64 spp, 131,072 cells), and the replay and geometry
+  replay kernels on that chunk, on a simple chunk of that size and on the
+  geometry path's first chunk with its own cotangent.  Per section: the
+  warp-level executions, the active lanes, the SIMT efficiency (lanes / (32
+  x executions)), the SM cycles warps spent there and their share of the
+  warps' whole stay in the kernel; then the launch's segments, occupancy
+  and ms with the probe and, from the production build, without it.  Not
+  part of ``all``.
 - designs: the forward and replay kernels built with other numbers of idle
   lanes that make a warp refill (``-DPT_REFILL_MIN=n``, the one design
   parameter ``csrc/step_math.cuh`` leaves to the build), each held to the
@@ -81,6 +84,14 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
   launches, device ms and busy share; then the geometry replay kernel alone
   on each chunk (ms, segments, swept paths and bounces, bound).  About 1
   minute on an H100; not part of ``all``.
+- geometry_designs: the geometry replay kernel against ``--baseline DIR``
+  (another checkout's ``csrc``: the parent commit's, from ``git archive``)
+  in one process, on simt's three chunks and one of each larger bucket
+  (smallpt, simple with every sphere twice, 40 of random_spheres' spheres),
+  the replay kernel beside them, timed in turns, the baseline held to this
+  build's partials; registers and spills of both; then every other
+  kernel's SASS against the baseline's.  About 2 minutes; not part of
+  ``all``.
 - geometry_step: the production geometry step as ``cli invert`` builds it
   on each route: 'geometry' (3 whole steps after a warm-up: ms, launches a
   step, one step profiled, then the step's gradient) and 'scan' (the
@@ -151,7 +162,13 @@ def smi() -> str:
 @contextlib.contextmanager
 def kernel_variant(flags):
     """Make the wrapper launch the library built with ``flags``."""
-    lib = _build.load(flags)
+    with kernel_variant_lib(_build.load(flags)):
+        yield
+
+
+@contextlib.contextmanager
+def kernel_variant_lib(lib):
+    """Make the wrapper launch ``lib``."""
     real = _build.load
     _build.load = lambda: lib
     try:
@@ -528,7 +545,7 @@ def part_geometry(dev):
         times, (part, st) = event_times(lambda: gk.geometry_replay(table, cam, (0, 0), ct, **kw))
         seg, sweep, missed = (int(st[k]) for k in ("segments", "sweep_bounces", "missed"))
         ops = roofline.geometry_ops(scene.num_spheres, seg, kw["n_items"], sweep, missed)
-        nbytes = (roofline.geometry_record_bytes(seg, sweep)
+        nbytes = (roofline.geometry_record_bytes(seg, sweep, kw["n_items"])
                   + 4 * (ct.numel() + table.numel() + cam.numel() + part.numel()))
         bound, by = roofline.bound_ms(nbytes, ops.issues())
         emit({"geometry_kernel": f"{name} 400x400, 16 spp, max_depth 100, 131072 cells",
@@ -813,20 +830,29 @@ def part_stream(dev):
 
 
 SECTIONS = ("regen", "intersect", "miss", "shade", "roulette", "diffuse", "specular",
-            "dielectric", "update", "retire", "accumulate", "warp")
-SIMT_BASE = 4  # pt::kSimtBase: the probe's first word in ``counters``
+            "dielectric", "update", "retire", "accumulate", "record", "sweep", "camera", "warp")
 SIMT_FLAGS = (*_build.FLAGS, "-DPT_SIMT_PROBE")
 
 
+def simt_base(kernel: str) -> int:
+    """The probe's first word in ``counters``: pt::kSimtBase, or after the
+    geometry replay's own counters."""
+    from cpu_path_tracing_tpu_torch.ops.kernels.geometry_replay import GEOMETRY_COUNTER_WORDS
+
+    return GEOMETRY_COUNTER_WORDS if kernel == "geometry" else 4
+
+
 def simt_launch(lib, kernel: str, table, cam, dyn, cfg, n_cells: int, n_items: int, ior, ct=None):
-    """One launch of ``kernel`` ('forward' or 'replay') from ``lib`` with a
-    ``counters`` buffer wide enough for the probe's sums.  Returns
-    (counters as a list of ints, lanes, CUDA-event ms)."""
+    """One launch of ``kernel`` ('forward', 'replay' or 'geometry') from
+    ``lib`` with a ``counters`` buffer wide enough for the probe's sums.
+    Returns (counters as a list of ints, lanes, CUDA-event ms)."""
+    from cpu_path_tracing_tpu_torch.ops.geometry_replay import n_geometry_partials
+    from cpu_path_tracing_tpu_torch.ops.kernels.geometry_replay import RECORD_WORDS
     from cpu_path_tracing_tpu_torch.ops.replay import n_partials
 
     dev, n = table.device, table.shape[0]
     params = mk.launch_params(cfg, dyn, n_spheres=n, n_cells=n_cells, n_items=n_items, ior=ior)
-    counters = torch.zeros(SIMT_BASE + 3 * len(SECTIONS), dtype=torch.int64, device=dev)
+    counters = torch.zeros(simt_base(kernel) + 3 * len(SECTIONS), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if kernel == "forward":
@@ -838,6 +864,23 @@ def simt_launch(lib, kernel: str, table, cam, dyn, cfg, n_cells: int, n_items: i
                                        mk.index_bits(params), ctypes.byref(lanes), stream)
         b.record()
         lanes = lanes.value
+    elif kernel == "geometry":
+        blocks, threads = ctypes.c_longlong(0), ctypes.c_int(0)
+        bits = mk.index_bits(params)
+        err = lib.pt_geometry_grid(n, ctypes.c_longlong(n_items), bits, ctypes.byref(blocks),
+                                   ctypes.byref(threads))
+        if err != 0:
+            raise RuntimeError(f"geometry grid query failed ({err})")
+        rows = torch.zeros((blocks.value, n_geometry_partials(n)), dtype=torch.float32,
+                           device=dev)
+        rec = torch.empty(cfg.max_depth * RECORD_WORDS * blocks.value * threads.value,
+                          dtype=torch.float32, device=dev)
+        a.record()
+        err = lib.pt_geometry_replay(table.data_ptr(), cam.data_ptr(), ct.data_ptr(),
+                                     rows.data_ptr(), rec.data_ptr(), counters.data_ptr(),
+                                     ctypes.addressof(params), bits, blocks.value, stream)
+        b.record()
+        lanes = blocks.value * threads.value
     else:
         blocks, threads = ctypes.c_longlong(0), ctypes.c_int(0)
         bits = mk.index_bits(params)
@@ -858,11 +901,11 @@ def simt_launch(lib, kernel: str, table, cam, dyn, cfg, n_cells: int, n_items: i
     return [int(v) for v in counters.tolist()], lanes, a.elapsed_time(b)
 
 
-def simt_table(counters) -> dict:
-    """The probe's sums per section, with each section's SIMT efficiency
-    and its share of the cycles warps spent in the kernel."""
-    rows = {name: counters[SIMT_BASE + 3 * k:SIMT_BASE + 3 * k + 3]
-            for k, name in enumerate(SECTIONS)}
+def simt_table(counters, base: int) -> dict:
+    """The probe's sums per section (from word ``base``), with each
+    section's SIMT efficiency and its share of the cycles warps spent in the
+    kernel."""
+    rows = {name: counters[base + 3 * k:base + 3 * k + 3] for k, name in enumerate(SECTIONS)}
     warp_cycles = rows["warp"][2]
     out = {}
     for name, (execs, lanes, cycles) in rows.items():
@@ -875,46 +918,82 @@ def simt_table(counters) -> dict:
     return out
 
 
+def geometry_step_chunk(dev):
+    """The first chunk of ``chip_smoke.py``'s geometry path (simple 400x400,
+    16 samples a span, max_depth 100; p0, radius, albedo and camera at
+    ``cli invert``'s seeded start, before a step) and its own cotangent,
+    the loss's: (table, cam, ct)."""
+    from cpu_path_tracing_tpu_torch import cli, grad
+
+    cfg = tp.RenderConfig(**GEOMETRY_CFG)
+    scene = tp.get_scene("simple", cfg.width, cfg.height).to(dev)
+    target = grad.render_target(scene, cfg, GEOMETRY_CHUNK)
+    true = grad.split_params(scene, ("p0", "radius", "albedo", "camera"))
+    sc = grad.merge_params(scene, cli.perturbed_params(true, 0, 0.05))
+    ids = torch.arange(GEOMETRY_CHUNK, device=dev)
+    with torch.no_grad():
+        ct = (2.0 * (render.render_cells_range(sc, cfg, ids, 0, cfg.spp) / cfg.spp
+                     - target[:GEOMETRY_CHUNK]) / cfg.spp).contiguous()
+    return mk.pack_scene(sc), mk.pack_camera(sc), ct
+
+
 def part_simt(dev):
+    """The probe build's sections and the production build's time of each
+    launch: the forward kernel on disco and on a box chunk; the replay and
+    the geometry replay kernels side by side on a box chunk, a simple chunk
+    (both with a seeded normal cotangent) and the geometry path's first
+    chunk with its own."""
     probe_lib, plain_lib = _build.load(SIMT_FLAGS), _build.load()
     log = _build.build(SIMT_FLAGS).with_suffix(".log").read_text()
     emit({"simt_build_ptxas": [ln.strip() for ln in log.splitlines()
-                               if "registers" in ln or "spill" in ln][:12]})
-    box_cfg = tp.RenderConfig(width=400, height=400, spp=16, max_depth=100)
-    chunk = 1 << 17
+                               if "registers" in ln or "spill" in ln][:40]})
+    box_cfg = tp.RenderConfig(**GEOMETRY_CFG)
+    chunk = GEOMETRY_CHUNK
+    n_items = box_cfg.spp * chunk
+    ct = torch.from_numpy(np.random.default_rng(11).normal(0, 1, (chunk, 3))
+                          .astype(np.float32)).to(dev)
     cases = []
     table, cam, kw = packed("box_mirror", MAIN, dev)
     cases.append(("disco 1024x768, 32 spp, depth 100", "forward", table, cam, MAIN,
-                  kw["n_cells"], kw["n_items"], kw["ior"]))
-    table, cam, kw = packed("box", box_cfg, dev)
-    for kernel in ("forward", "replay"):
-        cases.append(("box 400x400 chunk of 131,072 cells, 16 samples, depth 100", kernel, table,
-                      cam, box_cfg, chunk, box_cfg.spp * chunk, kw["ior"]))
-    ct = torch.from_numpy(np.random.default_rng(11).normal(0, 1, (chunk, 3))
-                          .astype(np.float32)).to(dev)
-    for what, kernel, table, cam, cfg, n_cells, n_items, ior in cases:
-        args = (kernel, table, cam, (0, 0), cfg, n_cells, n_items, ior, ct)
+                  kw["n_cells"], kw["n_items"], kw["ior"], ct))
+    for name in ("box", "simple"):
+        table, cam, kw = packed(name, box_cfg, dev)
+        what = f"{name} 400x400 chunk of 131,072 cells, 16 samples, depth 100"
+        for kernel in (("forward", "replay", "geometry") if name == "box"
+                       else ("replay", "geometry")):
+            cases.append((what, kernel, table, cam, box_cfg, chunk, n_items, kw["ior"], ct))
+    table, cam, step_ct = geometry_step_chunk(dev)
+    for kernel in ("replay", "geometry"):
+        cases.append(("the geometry path's first chunk (simple 400x400, 131,072 cells, 16 "
+                      "samples, depth 100) with its own cotangent", kernel, table, cam, box_cfg,
+                      chunk, n_items, 2.0, step_ct))
+    for what, kernel, table, cam, cfg, n_cells, n_items, ior, cot in cases:
+        args = (kernel, table, cam, (0, 0), cfg, n_cells, n_items, ior, cot)
         simt_launch(probe_lib, *args)  # warm-up
         counters, lanes, probe_ms = simt_launch(probe_lib, *args)
         simt_launch(plain_lib, *args)
         plain = [simt_launch(plain_lib, *args) for _ in range(3)]
         segments, iters = plain[0][0][0], plain[0][0][1]
-        emit({"simt": what, "kernel": kernel, "spheres": int(table.shape[0]), "n_items": n_items,
-              "segments": segments, "segments_per_item": segments / n_items, "iters": iters,
-              "lanes": lanes, "occupancy": segments / (iters * lanes),
-              "probe_segments": counters[0], "ms_with_probe": probe_ms,
-              "ms_production_build": sorted(ms for _, _, ms in plain),
-              "sections": simt_table(counters)})
+        rec = {"simt": what, "kernel": kernel, "spheres": int(table.shape[0]),
+               "n_items": n_items, "segments": segments, "segments_per_item": segments / n_items,
+               "iters": iters, "lanes": lanes, "occupancy": segments / (iters * lanes),
+               "probe_segments": counters[0], "ms_with_probe": probe_ms,
+               "ms_production_build": sorted(ms for _, _, ms in plain),
+               "sections": simt_table(counters, simt_base(kernel)), "smi": smi()}
+        if kernel == "geometry":
+            rec.update(sweep_bounces=plain[0][0][2], missed=plain[0][0][4])
+        emit(rec)
 
 
 DESIGNS = {"production": (),
            **{f"refill_{n}": (f"-DPT_REFILL_MIN={n}",) for n in (1, 4, 8, 12, 16, 32)}}
 
 
-def render_kernel_ptxas(flags) -> dict:
-    """Registers and spill line of every instantiation of the forward and
-    replay kernels in the build log of ``flags``."""
-    log = _build.build(flags).with_suffix(".log").read_text().splitlines()
+def render_kernel_ptxas(flags, kernels=("persistent_render", "replay_kernel"), log=None) -> dict:
+    """Registers and spill line of every instantiation of ``kernels`` (the
+    forward and replay kernels by default) in the build log of ``flags``, or
+    in the build log at path ``log``."""
+    log = (log or _build.build(flags).with_suffix(".log")).read_text().splitlines()
     out, name = {}, None
     for ln in log:
         if "Compiling entry function" in ln:
@@ -923,7 +1002,7 @@ def render_kernel_ptxas(flags) -> dict:
             out.setdefault(name, {})["spills"] = ln.strip()
         elif name and "registers" in ln:
             out.setdefault(name, {})["registers"] = int(ln.split("Used ")[1].split(" registers")[0])
-    return {k: v for k, v in out.items() if k.startswith(("persistent_render", "replay_kernel"))}
+    return {k: v for k, v in out.items() if k.startswith(tuple(kernels))}
 
 
 def first_spheres(name: str, n: int, cfg):
@@ -1002,6 +1081,123 @@ def part_designs(dev, names=None):
         emit(rec)
 
 
+def baseline_library(csrc: str):
+    """The kernels built from another checkout's ``csrc`` directory (the
+    parent commit's, unpacked with ``git archive``), loaded and declared as
+    ``_build.load`` does."""
+    real = _build.CSRC_DIR
+    _build.CSRC_DIR = _build.Path(os.path.abspath(csrc))
+    try:
+        return _build.load.__wrapped__(_build.FLAGS)
+    finally:
+        _build.CSRC_DIR = real
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` text split by function: {label: instructions},
+    the label ``roofline.kernel_label``'s (a mangled name carries a hash of
+    the source file's path) and each instruction without its address."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        if "Function : " in ln:
+            name = roofline.kernel_label(ln.split("Function : ")[1].strip())
+            out[name] = []
+        elif name and "/*" in ln and ";" in ln:
+            out[name].append(ln.split("*/", 1)[1].split(";")[0].strip())
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def part_geometry_designs(dev, baseline: str | None):
+    """The geometry replay kernel against the baseline build (``--baseline``:
+    another checkout's ``csrc``, the parent commit's) in one process, on
+    ``part_simt``'s three chunks (a box and a simple chunk with a seeded
+    normal cotangent, the geometry path's first chunk with its own) and on
+    three chunks of the larger buckets: smallpt (10 spheres, closed), simple
+    with every sphere twice (10, open, every swept bounce tied) and the first
+    40 spheres of random_spheres.  The replay kernel, the baseline and this
+    build each 1 warm-up and the median of 3 launches, in the order replay,
+    baseline, this, this, baseline, replay; the baseline's partials against
+    this build's (within 1e-4 of each block's largest magnitude + 1e-7; not
+    on the tie scene, whose split the baseline lacks), both builds'
+    registers and spills.  Then the SASS of every kernel but the geometry
+    replay's, baseline against this build: equal text where the tie count's
+    ``kAux`` code compiled out."""
+    from cpu_path_tracing_tpu_torch.models.scene import Scene
+    from cpu_path_tracing_tpu_torch.ops.geometry_replay import geometry_partial_blocks
+    from cpu_path_tracing_tpu_torch.ops.kernels import geometry_replay as gk
+
+    libs = {"this": _build.load()}
+    ptxas = {"this": render_kernel_ptxas(_build.FLAGS, ("geometry_replay",))}
+    if baseline:
+        libs["baseline"] = baseline_library(baseline)
+        ptxas["baseline"] = render_kernel_ptxas(
+            None, ("geometry_replay",), _build.Path(libs["baseline"]._name).with_suffix(".log"))
+    emit({"geometry_designs_ptxas": ptxas})
+    order = [name for name in ("baseline", "this") if name in libs]
+    cfg = tp.RenderConfig(**GEOMETRY_CFG)
+    n_items = cfg.spp * GEOMETRY_CHUNK
+    ct = torch.from_numpy(np.random.default_rng(11).normal(0, 1, (GEOMETRY_CHUNK, 3))
+                          .astype(np.float32)).to(dev)
+    chunks = {}
+    for name in ("box", "simple"):
+        table, cam, kw = packed(name, cfg, dev)
+        chunks[name] = (table, cam, ct, kw["ior"])
+    table, cam, step_ct = geometry_step_chunk(dev)
+    chunks["step"] = (table, cam, step_ct, 2.0)
+    simple = tp.get_scene("simple", cfg.width, cfg.height)
+    idx = torch.tensor([0, 1, 2, 3, 4, 0, 1, 2, 3, 4])
+    twice = Scene(**{f: getattr(simple, f)[idx] for f in ("p0", "radius", "anchor_dir",
+                                                          "emission", "albedo", "material")},
+                  background=simple.background, camera=simple.camera, ior=simple.ior)
+    for what, scene in (("smallpt", tp.get_scene("smallpt", cfg.width, cfg.height)),
+                        ("simple_twice", twice),
+                        ("random_spheres_40", first_spheres("random_spheres", 40, cfg))):
+        chunks[what] = (mk.pack_scene(scene).to(dev), mk.pack_camera(scene).to(dev), ct,
+                        scene.ior)
+
+    def rows_of(lib, table, cam, cot, ior):
+        """The partials (float64 sum of the rows) and counters of one launch."""
+        with kernel_variant_lib(lib):
+            part, st = gk.geometry_replay(table, cam, (0, 0), cot, cfg=cfg,
+                                          n_cells=GEOMETRY_CHUNK, n_items=n_items, ior=ior)
+        return part, {k: int(v) if torch.is_tensor(v) else v for k, v in st.items()}
+
+    for what, (table, cam, cot, ior) in chunks.items():
+        args = (table, cam, (0, 0), cfg, GEOMETRY_CHUNK, n_items, ior, cot)
+        times = {name: [] for name in ("replay", *order)}
+        for sweep in (["replay", *order], [*reversed(order), "replay"]):
+            for name in sweep:
+                lib, kernel = ((libs["this"], "replay") if name == "replay"
+                               else (libs[name], "geometry"))
+                simt_launch(lib, kernel, *args)
+                times[name] += [simt_launch(lib, kernel, *args)[2] for _ in range(3)]
+        ref, ref_st = rows_of(libs["this"], table, cam, cot, ior)
+        again, _ = rows_of(libs["this"], table, cam, cot, ior)
+        rec = {"geometry_designs": what, "spheres": int(table.shape[0]), "n_items": n_items,
+               "counts": ref_st, "bitwise_repeat": bool(torch.equal(ref, again)),
+               "smi": smi(), "builds": {}}
+        for name in ("replay", *order):
+            ts = sorted(times[name])
+            rec["builds"][name] = {"median_ms": ts[len(ts) // 2], "runs_ms": times[name]}
+        if "baseline" in libs and what != "simple_twice":
+            part, st = rows_of(libs["baseline"], table, cam, cot, ior)
+            worst = max(float((part[sl] - ref[sl]).abs().max())
+                        / (1e-4 * float(ref[sl].abs().max()) + 1e-7)
+                        for sl in geometry_partial_blocks(table.shape[0]).values())
+            rec["builds"]["baseline"].update(
+                worst_share_of_tolerance=worst,
+                counts_equal={k: st[k] == ref_st[k] for k in ("segments", "missed",
+                                                               "sweep_bounces")})
+        emit(rec)
+    if baseline:
+        tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+        new = sass_functions(_build.sass())
+        old = sass_functions(subprocess.run([tool, "-sass", libs["baseline"]._name],
+                                            capture_output=True, text=True, check=True).stdout)
+        same = {k: new.get(k) == v for k, v in old.items() if "geometry_replay" not in k}
+        emit({"sass_equal_to_baseline": same, "all_equal": all(same.values())})
+
+
 def part_scenes(dev):
     for name in tp.scene_names():
         if name == "disco_sphere":  # the alias of box_mirror
@@ -1020,8 +1216,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "step",
                                        "probe", "stream", "simt", "designs", "geometry",
-                                       "geometry_step", "sharded", "multicard", "all"),
+                                       "geometry_designs", "geometry_step", "sharded",
+                                       "multicard", "all"),
                     default="all")
+    ap.add_argument("--baseline", default=None,
+                    help="--part geometry_designs: another checkout's csrc directory to time "
+                         "beside this one (the parent commit's, from git archive)")
     ap.add_argument("--variants", default=None,
                     help="--part designs: comma-separated names of DESIGNS (default: all)")
     ap.add_argument("--out", default=None,
@@ -1047,6 +1247,8 @@ def main() -> int:
         part_designs(dev, args.variants.split(",") if args.variants else None)
     if args.part == "geometry":
         part_geometry(dev)
+    if args.part == "geometry_designs":
+        part_geometry_designs(dev, args.baseline)
     if args.part == "geometry_step":
         part_geometry_step(dev)
     if args.part == "sharded":

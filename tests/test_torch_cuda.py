@@ -419,8 +419,65 @@ def test_geometry_replay_kernel_matches_plain_version(cuda, name, depth):
     ref, ref_st = gk.geometry_replay_reference(*args, **kw)
     torch.cuda.synchronize()
     assert gk.geometry_replay.launches == before + 1
+    for k in ("segments", "missed", "sweep_bounces", "tied_bounces"):
+        assert int(st[k]) == ref_st[k], k
+    _geometry_blocks_ok(got, ref, scene.num_spheres)
+
+
+def _tie_scene(rows, width, height):
+    """simple with its spheres taken in the order ``rows``: a copy's roots
+    equal the original's bit for bit, so every hit on it ties exactly."""
+    from cpu_path_tracing_tpu_torch.models.scene import Scene
+
+    simple = tp.get_scene("simple", width, height)
+    idx = torch.tensor(rows)
+    return Scene(**{f: getattr(simple, f)[idx] for f in ("p0", "radius", "anchor_dir", "emission",
+                                                         "albedo", "material")},
+                 background=simple.background, camera=simple.camera, ior=simple.ior)
+
+
+@pytest.mark.parametrize("depth", [8, 100])
+@pytest.mark.parametrize("rows", [[0, 1, 2, 3, 4, 0, 1, 2, 3, 4], [0, 1, 2, 3, 4, 1, 1]],
+                         ids=["duplicated", "tripled"])
+def test_geometry_replay_kernel_splits_ties_as_plain_version(cuda, rows, depth):
+    """Spheres whose roots tie exactly (simple with every sphere twice, and
+    with its right sphere three times) at 64x48, 2 spp: the kernel splits
+    t's adjoint among them as its plain version does, each block within
+    1e-4 of its largest magnitude + 1e-7; the tied bounces it swept, more
+    than 0, and every other count equal to the plain version's; two launches
+    bitwise equal."""
+    scene = _tie_scene(rows, 64, 48)
+    cfg = tp.RenderConfig(width=64, height=48, spp=2, max_depth=depth)
+    ct = np.random.default_rng(depth).normal(0, 1, (cfg.num_cells, 3)).astype(np.float32)
+    args = (mk.pack_scene(scene).to(cuda), mk.pack_camera(scene).to(cuda), (0, 0),
+            torch.from_numpy(ct).to(cuda))
+    kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=2 * cfg.num_cells, ior=scene.ior)
+    got, st = gk.geometry_replay(*args, **kw)
+    again, _ = gk.geometry_replay(*args, **kw)
+    ref, ref_st = gk.geometry_replay_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert int(st["tied_bounces"]) == ref_st["tied_bounces"] > 0
     for k in ("segments", "missed", "sweep_bounces"):
         assert int(st[k]) == ref_st[k], k
+    _geometry_blocks_ok(got, ref, scene.num_spheres)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name", ["box", "simple"])
+def test_geometry_replay_kernel_repeats_bitwise(cuda, name):
+    """A closed scene (box: no path ends on a miss, every record stored and
+    none swept) and an open one (simple: nearly every path swept) at
+    128x96, 4 spp, max_depth 100: two launches bitwise equal, the plain
+    version's counts and block limits."""
+    scene, args, kw = _geometry_launch(cuda, name, 128, 96, 4, 100, (0, 0), 128 * 96 * 4)
+    got, st = gk.geometry_replay(*args, **kw)
+    again, st2 = gk.geometry_replay(*args, **kw)
+    ref, ref_st = gk.geometry_replay_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for k in ("segments", "missed", "sweep_bounces", "tied_bounces"):
+        assert int(st[k]) == int(st2[k]) == ref_st[k], k
+    assert (ref_st["missed"] == 0) == (name == "box")
     _geometry_blocks_ok(got, ref, scene.num_spheres)
 
 

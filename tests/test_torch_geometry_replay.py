@@ -8,7 +8,10 @@ material and for a tangent ray and a tangent refraction; the plain geometry
 replay to the port's scan VJP (float64, max_depth 8 and 100) and to
 ``jax.grad`` of the JAX package's loss (max_depth 8, as its own tests run
 it), 1e-9 relative with atol 1e-9 of each field's largest magnitude; in
-float32 to float32 autograd within 1e-4.  Scenes are 16x12 at 2 spp.
+float32 to float32 autograd within 1e-4.  Scenes are 16x12 at 2 spp.  Exact
+ties of roots (simple with every sphere twice, and with one sphere three
+times) are held to the scan VJP and ``jax.grad`` by the same tolerance; on
+scenes without a tie the split changes no bit.
 """
 
 import types
@@ -66,7 +69,7 @@ def _hand_bounce(scene, o, d, u, go, gd, aux):
     c = aux["cont"]
     hid = aux["hid"][c]
     fw = gr.bounce_forward(scene, o[c], d[c], hid, u[c], epsilon=KW["epsilon"], inf=KW["inf"])
-    g_o, g_d, g_p0, g_r = gr.bounce_vjp(fw, go[c], gd[c])
+    g_o, g_d, g_p0, g_r, _ = gr.bounce_vjp(fw, go[c], gd[c])
     onehot = (hid[:, None] == torch.arange(scene.num_spheres)[None, :]).double()
     full_o, full_d = torch.zeros_like(o), torch.zeros_like(d)
     full_o[c], full_d[c] = g_o, g_d
@@ -367,3 +370,143 @@ def test_geometry_route_on_plain_versions_matches_scan(monkeypatch):
         for n in names:
             np.testing.assert_allclose(got[n].numpy(), ref[n].numpy(), rtol=1e-9,
                                        atol=1e-9 * scale, err_msg=n)
+
+
+# Tie scenes: simple with every sphere duplicated, and simple with its
+# right sphere (index 1) three times.  A copy's roots equal the original's
+# bit for bit, so every hit on it ties exactly.
+TIE_SCENES = {"duplicated": [0, 1, 2, 3, 4, 0, 1, 2, 3, 4], "tripled": [0, 1, 2, 3, 4, 1, 1]}
+
+
+def _tie_arrays(rows):
+    """simple's fields (the JAX package's, float64) with its spheres taken
+    in the order ``rows``."""
+    js = pt.get_scene("simple", W, H, dtype=jnp.float64)
+    arrays = {f: np.asarray(getattr(js, f))[rows] for f in ("p0", "radius", "anchor_dir",
+                                                             "emission", "albedo", "material")}
+    arrays["background"] = np.asarray(js.background)
+    arrays["camera"] = {f: np.asarray(getattr(js.camera, f)) for f in CAMERA_FIELDS}
+    return arrays, js.ior
+
+
+@pytest.mark.parametrize("name", list(TIE_SCENES))
+def test_plain_replay_splits_exact_ties_as_scan_vjp(name):
+    """Float64, 16x12, 2 spp, depth 8: where spheres' roots tie exactly, t's
+    adjoint goes g_t / m to each through its own root, as the scan VJP's
+    ``amin`` splits it: the plain geometry replay within 1e-9 relative (atol
+    1e-9 of each field's largest magnitude) of the scan VJP, tied bounces
+    counted, and the copies that never win a tie (the hit record stays the
+    lowest index's) given gradients through their roots alone: equal where
+    two of them copy one sphere."""
+    arrays, ior = _tie_arrays(TIE_SCENES[name])
+    scene = tp.scene_from_arrays(arrays, ior=ior)
+    cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=8)
+    ct = torch.from_numpy(np.random.default_rng(8).normal(0, 1, (cfg.num_cells, 3)))
+    got, st = _plain_grads(scene, cfg, ct)
+    ref = _scan_grads(scene, cfg, ct)
+    _assert_fields_close(got, ref, 1e-9, 1e-9)
+    # Every hit ties when every sphere has a copy; with one sphere tripled,
+    # only the hits on it.
+    assert 0 < st["tied_bounces"] <= st["sweep_bounces"]
+    assert (st["tied_bounces"] == st["sweep_bounces"]) == (name == "duplicated")
+    assert float(got["radius"][6].abs()) > 0 and float(got["p0"][6].abs().max()) > 0
+    if name == "tripled":
+        assert torch.equal(got["radius"][5], got["radius"][6])
+        assert torch.equal(got["p0"][5], got["p0"][6])
+
+
+@pytest.mark.parametrize("name", list(TIE_SCENES))
+def test_plain_replay_ties_match_jax_grad(name):
+    """The tie scenes against ``jax.grad`` of the JAX package's ``cell_loss``
+    (the scan loop on the CPU, as ``test_plain_replay_matches_jax_grad``):
+    the plain geometry replay with the loss's cotangent within 1e-9 relative
+    (atol 1e-9 of each field's largest magnitude)."""
+    arrays, ior = _tie_arrays(TIE_SCENES[name])
+    js = pt.get_scene("simple", W, H, dtype=jnp.float64)
+    js = type(js)(**{f: jnp.asarray(arrays[f]) for f in ("p0", "radius", "anchor_dir",
+                                                         "emission", "albedo", "material",
+                                                         "background")},
+                  camera=js.camera, ior=js.ior)
+    jcfg = pt.RenderConfig(width=W, height=H, spp=SPP, max_depth=8, loop="scan")
+    ids = jnp.arange(jcfg.num_cells, dtype=jnp.int32)
+    target = jax_render_cells(js, jcfg, ids) * 0.9
+    jg = jax.grad(jgrad.cell_loss)(jgrad.split_params(js, GEOMETRY_FIELDS), js, jcfg, ids, target)
+    ref = {"p0": torch.from_numpy(np.array(jg["p0"])),
+           "radius": torch.from_numpy(np.array(jg["radius"])),
+           **{f"camera.{f}": torch.from_numpy(np.array(getattr(jg["camera"], f)))
+              for f in CAMERA_FIELDS}}
+    ts = tp.scene_from_arrays(arrays, ior=ior)
+    cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=8)
+    cells = render_cells_range(ts, cfg, torch.arange(cfg.num_cells), 0, SPP) / SPP
+    ct = 2.0 * (cells - torch.from_numpy(np.array(target))) / (SPP * cells.numel())
+    got, st = _plain_grads(ts, cfg, ct)
+    assert st["tied_bounces"] > 0
+    _assert_fields_close(got, ref, 1e-9, 1e-9)
+
+
+def _untie(monkeypatch):
+    """Make ``bounce_forward`` report every hit sphere's root untied, so that
+    it takes all of t's adjoint."""
+    forward = gr.bounce_forward
+
+    def untied(spheres, o, d, hid, u, **k):
+        f = forward(spheres, o, d, hid, u, **k)
+        f.tied = torch.nn.functional.one_hot(hid, f.tied.shape[1]).bool()
+        f.ties = torch.ones_like(f.ties)
+        return f
+
+    monkeypatch.setattr(gr, "bounce_forward", untied)
+
+
+@pytest.mark.parametrize("name,depth", [("simple", 8), ("simple", 100), ("box_mirror", 100),
+                                        ("smallpt", 8), ("depth_of_field", 8)])
+def test_plain_replay_without_ties_is_unchanged(name, depth, monkeypatch):
+    """On scenes with no exact tie the split changes nothing: no tied
+    bounce, and the partials bitwise equal to a replay whose hit sphere takes
+    all of t's adjoint (every tie count forced to 1, which is what the
+    replay computed before the split)."""
+    cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=depth)
+    scene = tp.get_scene(name, W, H, dtype=torch.float64)
+    ct = torch.from_numpy(np.random.default_rng(depth).normal(0, 1, (cfg.num_cells, 3)))
+    args = (mk.pack_scene(scene, torch.float64), mk.pack_camera(scene, torch.float64), (0, 0), ct)
+    kw = dict(cfg=cfg, n_cells=cfg.num_cells, n_items=SPP * cfg.num_cells, ior=scene.ior)
+    part, st = gk.geometry_replay(*args, **kw)
+    assert st["tied_bounces"] == 0
+    _untie(monkeypatch)
+    alone, _ = gk.geometry_replay(*args, **kw)
+    assert torch.equal(part, alone)
+
+
+def test_plain_replay_untied_differs_on_a_tie_scene(monkeypatch):
+    """The forced tie count of ``test_plain_replay_without_ties_is_unchanged``
+    is no identity: on the duplicated scene it moves the radius gradients
+    (the hit sphere then takes t's whole adjoint)."""
+    arrays, ior = _tie_arrays(TIE_SCENES["duplicated"])
+    scene = tp.scene_from_arrays(arrays, ior=ior)
+    cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=8)
+    ct = torch.from_numpy(np.random.default_rng(8).normal(0, 1, (cfg.num_cells, 3)))
+    split, _ = _plain_grads(scene, cfg, ct)
+    _untie(monkeypatch)
+    alone, _ = _plain_grads(scene, cfg, ct)
+    assert float(alone["radius"][6].abs()) == 0.0 < float(split["radius"][6].abs())
+
+
+def test_geometry_record_bytes_is_one_sector_a_bounce():
+    """The record's traffic: one 32-byte sector (8 float32 words: origin,
+    direction, hit id, tie count) stored a segment, 16 bytes for a path's
+    last, and loaded a bounce swept back; the kernel's record holds
+    ``RECORD_WORDS`` = 8 words a bounce.  A tied bounce is charged one more
+    sphere's root and root VJP whatever the scene's sphere count."""
+    from cpu_path_tracing_tpu_torch.utils import roofline
+
+    assert gk.RECORD_WORDS * 4 == 32
+    assert roofline.geometry_record_bytes(0, 0, 0) == 0
+    assert roofline.geometry_record_bytes(1, 0, 1) == 16
+    assert roofline.geometry_record_bytes(5_035_384, 0, 2_097_152) == (
+        32 * 5_035_384 - 16 * 2_097_152)
+    assert roofline.geometry_record_bytes(4_735_949, 2_615_881, 2_097_152) == (
+        32 * (4_735_949 + 2_615_881) - 16 * 2_097_152)
+    for n in (5, 10, 40):
+        ops = roofline.geometry_ops(n, 100, 10, 20, 5, tied_bounces=3)
+        base = roofline.geometry_ops(n, 100, 10, 20, 5)
+        assert ops.issues() - base.issues() == 3 * roofline.geometry_tie_ops().issues() > 0
