@@ -234,6 +234,67 @@ def probe_model_ms(ops: OpCounts, constants: dict) -> float:
     return ns / 1e6
 
 
+# Per-SM-per-clock rates of an H100 (compute capability 9.0, the CUDA C++
+# Programming Guide's arithmetic instruction throughput table) by the pipe an
+# opcode issues to: "fma", float32 add, multiply and FMA, 128; "imad", the
+# 32-bit integer multiply-adds (IMAD, and VIADD, an add the compiler issues
+# there), 64, and they take the fma pipe's slots too; "alu", 32-bit integer
+# add, shift, logic, compare, select and move (float compare, select and
+# min/max with them), 64; "xu", MUFU and type conversions, 16.  Every
+# instruction, a branch, a barrier or a uniform-datapath one too, also takes
+# a dispatch slot of the SM's four schedulers, 128 lanes a clock.
+PIPE_RATES = {"fma": 128, "imad": 64, "alu": 64, "xu": 16, "dispatch": 128}
+SM_CLOCK_HZ = 1.98e9  # under load (PERF.md section 6)
+N_SMS = 132
+_PIPES = {
+    "fma": {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "FSWZADD"},
+    "imad": {"IMAD", "IMUL", "VIADD"},
+    "alu": {"IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL", "SHR", "LEA",
+            "ISCADD", "ISETP", "FSETP", "FSEL", "SEL", "FMNMX", "IMNMX", "MOV", "MOV32I", "PRMT",
+            "IABS", "PLOP3", "BMSK", "FCHK"},
+    "xu": {"MUFU", "F2I", "I2F", "F2F", "I2I", "I2FP", "F2IP", "FRND", "F2FP", "POPC", "FLO",
+           "BREV"},
+}
+
+
+def pipe_bound_ms(pipes: dict, trips: float) -> tuple[float, str]:
+    """(least ms, the pipe that binds) of ``trips`` thread-trips of a loop
+    whose trip issues ``pipes`` instructions by pipe (``sass_loops``'
+    ``fast_path``), each pipe at its rate over 132 SMs at 1,980 MHz."""
+    times = {p: trips * n / (PIPE_RATES[p] * N_SMS * SM_CLOCK_HZ) * 1e3
+             for p, n in pipes.items() if p in PIPE_RATES}
+    pipe = max(times, key=times.get)
+    return times[pipe], pipe
+
+
+def _fast_path(code: list, first: int, last: int) -> dict:
+    """The instructions one trip of the loop ``code[first..last]`` issues
+    when every forward branch inside it is taken: the blocks such a branch
+    skips (a precise square root's or division's slow path, compiled in
+    line) are left out.  By pipe (``PIPE_RATES``; an IMAD counts on the fma
+    pipe too) and by opcode (a CALL among them would be a slow path the
+    walk did not skip)."""
+    index = {addr: i for i, (addr, _, _, _) in enumerate(code)}
+    pipes = dict.fromkeys(PIPE_RATES, 0)
+    opcodes, i = {}, first
+    while i <= last:
+        addr, _, op, rest = code[i]
+        base = op.split(".")[0]
+        opcodes[base] = opcodes.get(base, 0) + 1
+        pipes["dispatch"] += 1
+        pipe = next((p for p, ops in _PIPES.items() if base in ops), None)
+        if pipe:
+            pipes[pipe] += 1
+            pipes["fma"] += pipe == "imad"
+        target = re.search(r"0x([0-9a-f]+)", rest) if base == "BRA" and i < last else None
+        if target and addr < int(target.group(1), 16) and index.get(
+                int(target.group(1), 16), last + 1) <= last:
+            i = index[int(target.group(1), 16)]
+            continue
+        i += 1
+    return {"instructions": pipes["dispatch"], "pipes": pipes, "opcodes": opcodes}
+
+
 _INSTRUCTION = re.compile(
     r"^\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 
@@ -262,7 +323,8 @@ def sass_loops(sass: str) -> dict:
     opcode's first part as key (``FMUL``, ``MUFU``).  The span also holds
     what a forward branch skips at run time (a slow path compiled in line),
     so it shows that an instruction is in the loop, not how many issue on a
-    trip.  A kernel without a backward branch is left out."""
+    trip; ``fast_path`` (``_fast_path``) counts those.  A kernel without a
+    backward branch is left out."""
     out, label, code = {}, None, []
 
     def close():
@@ -280,7 +342,8 @@ def sass_loops(sass: str) -> dict:
             ops = {}
             for _, _, op, _ in code[best[0]:best[1] + 1]:
                 ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
-            out[label] = {"instructions": best[1] - best[0] + 1, "opcodes": ops}
+            out[label] = {"instructions": best[1] - best[0] + 1, "opcodes": ops,
+                          "fast_path": _fast_path(code, *best)}
 
     for line in sass.splitlines():
         if "Function :" in line:

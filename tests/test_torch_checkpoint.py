@@ -36,15 +36,12 @@ from cpu_path_tracing_tpu_torch.utils.checkpoint import (
     load_or_init_invert,
     render_progressive,
 )
+from cpu_path_tracing_tpu_torch.utils.parity import scale_aware
 
 torch.set_num_threads(1)
 
 CFG = tp.RenderConfig(width=16, height=12, spp=4, max_depth=12)
 JCFG = pt.RenderConfig(width=16, height=12, spp=4, max_depth=12, integrator="wavefront")
-
-
-def _scale_aware(a, b):
-    return np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
 
 
 def test_resume_is_bit_exact(tmp_path):
@@ -71,7 +68,7 @@ def test_progressive_matches_jax(dtypes):
     got = render_progressive(tp.get_scene("box_mirror", 16, 12, dtype=td), CFG,
                              flush_every=1).numpy()
     assert got.dtype == ref.dtype and got.shape == ref.shape
-    dev = _scale_aware(got, ref)
+    dev = scale_aware(got, ref)
     if td == torch.float64:
         assert float(dev.max()) < 1e-12
     else:

@@ -39,6 +39,7 @@ from cpu_path_tracing_tpu.models.io import scene_to_dict as jax_scene_to_dict
 import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch import cli, grad
 from cpu_path_tracing_tpu_torch.models.io import scene_from_dict
+from cpu_path_tracing_tpu_torch.utils.parity import scale_aware
 
 torch.set_num_threads(1)
 
@@ -141,7 +142,7 @@ def test_render_at_one_subpixel_and_early_roulette_matches_jax(tmp_path):
                            max_depth=12, seed=3, integrator="wavefront")
     ref = np.asarray(pt.render_image(pt.get_scene("box", 16, 12, dtype=jnp.float64), jcfg))
     got = tp.render_image(tp.get_scene("box", 16, 12, dtype=torch.float64), cfg).numpy()
-    dev = np.abs(got - ref) / np.maximum(np.maximum(np.abs(got), np.abs(ref)), 1.0)
+    dev = scale_aware(got, ref)
     assert got.shape == (12, 16, 3) and float(dev.max()) < 1e-9
     # A roulette depth that matters: the default's image differs.
     other = tp.render_image(tp.get_scene("box", 16, 12, dtype=torch.float64),

@@ -34,6 +34,7 @@ import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch import cli
 from cpu_path_tracing_tpu_torch.parallel import distributed as dist_mod
 from cpu_path_tracing_tpu_torch.render import finalize_image, render_cells_range
+from cpu_path_tracing_tpu_torch.utils.parity import scale_aware
 
 torch.set_num_threads(1)
 
@@ -247,5 +248,5 @@ def test_a_jax_rendered_shard_assembles_in_the_port(tmp_path):
                           fingerprint=dist_mod.render_fingerprint(scene, CFG))
     img = dist_mod.assemble_shards(str(tmp_path), CFG, fingerprint=fp).numpy()
     ref = finalize_image(torch.from_numpy(means), CFG).numpy()
-    dev = np.abs(img - ref) / np.maximum(np.maximum(np.abs(img), np.abs(ref)), 1.0)
+    dev = scale_aware(img, ref)
     assert float(np.mean(dev > 1e-5)) <= 1e-3

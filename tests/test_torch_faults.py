@@ -29,15 +29,12 @@ from cpu_path_tracing_tpu_torch.orchestrator import (
     tile_spans,
 )
 from cpu_path_tracing_tpu_torch.render import render_cells_range, render_image
+from cpu_path_tracing_tpu_torch.utils.parity import scale_aware
 
 torch.set_num_threads(1)
 
 CFG = tp.RenderConfig(width=16, height=12, spp=2, max_depth=8)
 JCFG = pt.RenderConfig(width=16, height=12, spp=2, max_depth=8, integrator="wavefront")
-
-
-def _scale_aware(a, b):
-    return np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
 
 
 @pytest.fixture(scope="module")
@@ -76,10 +73,10 @@ def test_tiled_matches_jax(dtypes):
     js = pt.get_scene("box_mirror", 16, 12, dtype=jd)
     if td == torch.float32:
         ref = np.asarray(jax_orch.render_tiled(js, JCFG, tile_cells=64))
-        assert float(np.mean(_scale_aware(got.numpy(), ref) > 1e-5)) <= 1e-3
+        assert float(np.mean(scale_aware(got.numpy(), ref) > 1e-5)) <= 1e-3
     else:
         ref = np.asarray(pt.render_image(js, JCFG))
-        assert float(_scale_aware(got.numpy(), ref).max()) < 1e-12
+        assert float(scale_aware(got.numpy(), ref).max()) < 1e-12
 
 
 def test_injected_fault_retried_and_bit_identical(scene, untiled):

@@ -28,6 +28,7 @@ import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch.ops import integrator as tint
 from cpu_path_tracing_tpu_torch.ops.intersect import intersect_scene
 from cpu_path_tracing_tpu_torch.render import render_cells_range
+from cpu_path_tracing_tpu_torch.utils.parity import scale_aware
 
 torch.set_num_threads(1)
 
@@ -74,7 +75,7 @@ def _run_both(name, jd, td, depth, seed=0):
 def _ray_dev(a, b):
     """Per-ray scale-aware deviation |a-b| / max(|a|,|b|,1), max over channels."""
     a, b = a.astype(np.float64), b.astype(np.float64)
-    d = np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
+    d = scale_aware(a, b)
     return d.reshape(B, -1).max(axis=1)
 
 

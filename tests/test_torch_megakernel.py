@@ -21,14 +21,11 @@ from cpu_path_tracing_tpu.ops.pallas import megakernel as jmk
 import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch import _build
 from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+from cpu_path_tracing_tpu_torch.utils.parity import scale_aware
 
 torch.set_num_threads(1)
 
 W, H, SPP, DEPTH, ROWS, RING = 16, 12, 2, 8, 8, 4
-
-
-def _scale_aware(a, b):
-    return np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
 
 
 # (cell_start, sample_start), cells in the span: the whole image; and a span
@@ -57,7 +54,7 @@ def test_plain_version_matches_pallas_kernel(dyn, n_cells):
         torch.from_numpy(table), torch.from_numpy(cam), dyn, cfg=tcfg,
         n_cells=n_cells, n_items=n_items, ior=scene.ior)
     assert got.shape == (3, n_items) and got.dtype == torch.float32
-    dev = _scale_aware(got.numpy(), ref).max(axis=0)
+    dev = scale_aware(got.numpy(), ref).max(axis=0)
     assert float(np.mean(dev < 1e-5)) >= 0.999, float(np.mean(dev < 1e-5))
     assert abs(stats["segments"] - int(nseg)) <= 1e-3 * int(nseg)
     assert stats["lanes"] == n_items and 0 < stats["iters"] <= DEPTH

@@ -37,19 +37,16 @@ import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch import cli
 from cpu_path_tracing_tpu_torch.ops import wavefront
 from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
+from cpu_path_tracing_tpu_torch.utils.parity import scale_aware
 
 torch.set_num_threads(1)
 
 W, H, SPP, DEPTH, LANES, ROWS, RING = 16, 12, 2, 8, 1024, 8, 4
 
 
-def _scale_aware(a, b):
-    return np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
-
-
 def _close_share(a, b, tol: float = 1e-5) -> float:
     """Share of lanes (last axis) whose worst field is within ``tol``."""
-    return float(np.mean(_scale_aware(a, b).max(axis=0) < tol))
+    return float(np.mean(scale_aware(a, b).max(axis=0) < tol))
 
 
 def test_plain_step_matches_pallas_kernel():

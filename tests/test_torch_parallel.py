@@ -35,6 +35,7 @@ from cpu_path_tracing_tpu_torch.parallel.render import (
     render_image_sharded,
     replicate_scene,
 )
+from cpu_path_tracing_tpu_torch.utils.parity import scale_aware
 
 torch.set_num_threads(1)
 
@@ -112,7 +113,7 @@ def test_4x2_matches_jax_sharded_render_float64(name):
     got = render_image_sharded(tp.get_scene(name, cfg.width, cfg.height, dtype=torch.float64),
                                cfg, make_mesh(4, 2, cpus(8))).numpy()
     assert got.dtype == ref.dtype == np.float64
-    dev = np.abs(got - ref) / np.maximum(np.maximum(np.abs(got), np.abs(ref)), 1.0)
+    dev = scale_aware(got, ref)
     assert float(dev.max()) < 1e-12
 
 

@@ -6,8 +6,9 @@
   float64 rounding (max scale-aware deviation < 1e-9).
 * Float32: against the committed pins ``tests/data/pin_*_64x48.npz`` (JAX
   batch integrator, CPU float32, ``tests/test_goldens.py`` config): a pixel
-  may move when a float32 ulp flips a discrete decision, so at most 1% of
-  pixels may deviate by more than 1e-4 and channel means agree within 0.5%.
+  may move when a float32 ulp flips a discrete decision, so by
+  ``utils/parity.pin_gate`` at most 1% of pixels may deviate (worst
+  channel) by more than 1e-4 and channel means agree within 0.5%.
 """
 
 import os
@@ -23,15 +24,12 @@ import cpu_path_tracing_tpu as pt
 from cpu_path_tracing_tpu.render import camera_rays_for_cells as jax_camera_rays
 import cpu_path_tracing_tpu_torch as tp
 from cpu_path_tracing_tpu_torch import cli, render
+from cpu_path_tracing_tpu_torch.utils.parity import pin_gate, scale_aware
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
-
-
-def _scale_aware(a, b):
-    return np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
 
 
 @pytest.mark.parametrize("name", ["box", "box_mirror", "simple"])
@@ -41,7 +39,7 @@ def test_render_image_f64_matches_jax(name):
     ref = np.asarray(pt.render_image(pt.get_scene(name, 32, 24, dtype=jnp.float64), jcfg))
     got = tp.render_image(tp.get_scene(name, 32, 24, dtype=torch.float64), tcfg)
     assert got.dtype == torch.float64 and got.shape == (24, 32, 3)
-    assert float(_scale_aware(got.numpy(), ref).max()) < 1e-9
+    assert float(scale_aware(got.numpy(), ref).max()) < 1e-9
 
 
 @pytest.mark.parametrize("name", ["box", "box_mirror", "simple"])
@@ -49,10 +47,8 @@ def test_render_image_f32_matches_pins(name):
     cfg = tp.RenderConfig(width=64, height=48, spp=2, max_depth=16)
     img = tp.render_image(tp.get_scene(name, 64, 48), cfg).numpy()
     ref = np.load(os.path.join(DATA, f"pin_{name}_64x48.npz"))["img"]
-    dev = np.abs(img - ref) / np.maximum(1.0, np.abs(ref))
-    assert float(np.mean(dev > 1e-4)) <= 0.01
-    ratio = img.reshape(-1, 3).mean(0) / ref.reshape(-1, 3).mean(0)
-    assert np.all(np.abs(ratio - 1.0) < 0.005), ratio
+    rec = pin_gate(img, ref, mean_tol=0.005)
+    assert rec["ok"], rec
 
 
 @pytest.mark.parametrize("jitter", ["uniform", "tent"])
