@@ -187,7 +187,12 @@ script exits non-zero.
    forward launches a render, the 4x1 image bitwise equal to
    ``render_image``'s, the 2x2 within 1e-6 * max(1, |ref|) with its max
    |delta|, each timed with CUDA events (1 warm-up, median of 3) beside the
-   one pass.  multiprocess_render: ``cli render --num-processes 2
+   one pass; the shards' overlap: a CUDA event on each shard's stream as
+   its ``render_cells_range`` starts and after its last kernel, every
+   shard's start before the previous shard's end (no host wait on the
+   previous shard between them), and, as a control, the 4x1 mesh's four
+   shards run one after another on one stream read as not overlapped.
+   multiprocess_render: ``cli render --num-processes 2
    --coordinator 127.0.0.1:<free port> --process-id {0,1}``, both ranks on
    cuda:0, the same disco, three runs (replicated; ``--shard-dir``;
    ``--shard-dir --inject-shard-loss 1 --shard-timeout 3``): each PNG byte
@@ -774,12 +779,44 @@ def parallel_paths(dev, k2: dict, k3: dict, k7: dict, smi: str) -> None:
     from cpu_path_tracing_tpu_torch.ops.kernels import geometry_replay as gk
     from cpu_path_tracing_tpu_torch.ops.kernels import megakernel as mk
     from cpu_path_tracing_tpu_torch.ops.kernels import replay as rk
+    from cpu_path_tracing_tpu_torch.parallel import render as pr
     from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
     from cpu_path_tracing_tpu_torch.parallel.render import render_image_sharded
 
     def zero():
         mk.persistent_render.launches = rk.replay_persistent.launches = 0
         gk.geometry_replay.launches = 0
+
+    def shard_overlap(render):
+        """``render()`` with a CUDA event on the stream of each shard's
+        ``render_cells_range`` call as it starts and after its last kernel,
+        the shards in the order of the calls (mesh order).  Overlapped:
+        every shard started before the previous one's last kernel ended, so
+        no host wait on the previous shard came between."""
+        marks = []
+        real = pr.render_cells_range
+
+        def traced(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real(*args, **kw)
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            marks.append((a, b))
+            return out
+
+        pr.render_cells_range = traced
+        try:
+            render()
+        finally:
+            pr.render_cells_range = real
+        torch.cuda.synchronize()
+        t0 = marks[0][0]
+        leads = [a.elapsed_time(b_prev) for (a, _), (_, b_prev) in zip(marks[1:], marks)]
+        return {"shards": len(marks),
+                "start_end_ms": [[t0.elapsed_time(a), t0.elapsed_time(b)] for a, b in marks],
+                "start_before_previous_end_ms": leads,
+                "overlapped": len(marks) > 1 and all(x > 0 for x in leads)}
 
     def counts():
         torch.cuda.synchronize()
@@ -818,13 +855,29 @@ def parallel_paths(dev, k2: dict, k3: dict, k7: dict, smi: str) -> None:
         tag = f"{shape[0]}x{shape[1]}"
         rec[tag] = {"k2_launches": launches, "ms": ms, "bitwise": bool(torch.equal(img, ref)),
                     "max_abs_delta": float(delta.max()),
-                    "within_1e-6": bool((delta <= lim).all())}
-        ok = ok and launches == 4 and rec[tag]["within_1e-6"]
+                    "within_1e-6": bool((delta <= lim).all()),
+                    "shard_overlap": shard_overlap(lambda: render_image_sharded(scene, cfg,
+                                                                                mesh))}
+        ok = (ok and launches == 4 and rec[tag]["within_1e-6"]
+              and rec[tag]["shard_overlap"]["shards"] == 4
+              and rec[tag]["shard_overlap"]["overlapped"])
         k2["launches_parallel"][f"sharded_render_{tag}"] = launches
-    rec["ok"] = ok and rec["4x1"]["bitwise"]
+
+    # The control: the same 4 shards of the 4x1 mesh one after another on
+    # one stream, as the mesh ran before its SPMD runner, must read as not
+    # overlapped.
+    def serial():
+        per = pr.tile_span(cfg, 4)
+        for t in range(4):
+            ids = torch.arange(t * per, (t + 1) * per, dtype=torch.int64, device=dev)
+            pr.render_cells_range(scene, cfg, ids, 0, cfg.spp)
+
+    rec["serial_control"] = shard_overlap(serial)
+    rec["ok"] = (ok and rec["4x1"]["bitwise"] and rec["serial_control"]["shards"] == 4
+                 and not rec["serial_control"]["overlapped"])
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
-    check(rec["ok"], "the sharded render: launches, bits or the 1e-6 limit")
+    check(rec["ok"], "the sharded render: launches, bits, the 1e-6 limit or the shards' overlap")
 
     # ---- 27. multiprocess_render ----
     t_phase = time.perf_counter()

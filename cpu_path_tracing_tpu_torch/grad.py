@@ -3,7 +3,9 @@
 Counterpart of ``cpu_path_tracing_tpu/grad.py``.  Every field of
 ``OPTIMIZABLE`` differentiates on the scene's device; the sharded steps
 (``make_sharded_accum_train_step``, ``make_sharded_train_step``) spread the
-same work over a ('tiles', 'samples') mesh of devices in one process.
+same work over a ('tiles', 'samples') mesh of devices, in one process (the
+accumulating step on a mesh over several devices: a worker process a
+device).
 
 The rendered cell sum is a ``torch.autograd.Function`` (``_RenderSpan``)
 with a decoupled forward and backward, as the JAX package's custom VJP:
@@ -53,6 +55,8 @@ from .ops.integrator import radiance
 from .ops.kernels.geometry_replay import geometry_param_grads_kernel
 from .ops.kernels.replay import replay_kernel_takes, replay_param_grads_kernel
 from .ops.replay import replay_param_grads_auto
+from .parallel import spmd
+from .parallel.cards import CardShards
 from .parallel.mesh import SAMPLE_AXIS, TILE_AXIS, Mesh
 from .parallel.render import replicate_scene, samples_per_shard, sum_shards
 from .render import camera_rays, render_cells_range
@@ -434,6 +438,58 @@ def _adam_step(loss_grad, lr: float):
     return step
 
 
+def shard_forward(span, names, leaves, start: int, per: int, sample_start: int):
+    """One shard's differentiable sums [per, 3] of cells ``[start, start +
+    per)`` from ``sample_start``, through ``span`` (``make_diff_render_span``)
+    on the leaves' device."""
+    return span(unflatten_params(names, leaves),
+                torch.arange(start, start + per, device=leaves[0].device), sample_start)
+
+
+def shard_backward(sums, leaves, ct, prev):
+    """``prev`` plus the gradients of ``sum(ct * sums)`` with respect to
+    ``leaves`` (``prev`` None: the gradients alone)."""
+    g = torch.autograd.grad(sums, leaves, grad_outputs=ct)
+    return g if prev is None else [a + b for a, b in zip(prev, g)]
+
+
+class _Shards:
+    """The shards of a mesh whose entries share one device, run in this
+    process through ``parallel/spmd.run``; ``parallel/cards.CardShards``
+    has the same methods, a worker process a device."""
+
+    def __init__(self, mesh, spans, spp_local: int):
+        self.mesh, self.spans, self.spp_local = mesh, spans, spp_local
+
+    def start(self, names, values) -> None:
+        on_device = {d: [v.detach().to(d) for v in values] for d in self.spans}
+        # Leaves of each shard's own: autograd keeps a leaf's gradient on the
+        # stream of the shard that first used it.
+        self.names = names
+        self.leaves = [[[v.detach().requires_grad_(True) for v in on_device[d]] for d in row]
+                       for row in self.mesh.devices]
+        self.acc = [[None] * len(row) for row in self.mesh.devices]
+
+    def forward(self, chunk: int, per: int) -> list:
+        self.sums = spmd.run(self.mesh, lambda t, s, d: shard_forward(
+            self.spans[d], self.names, self.leaves[t][s], chunk + t * per, per,
+            s * self.spp_local))
+        return [[x.detach() for x in row] for row in self.sums]
+
+    def backward(self, cts) -> None:
+        cts = [[ct.to(d) for d in row] for ct, row in zip(cts, self.mesh.devices)]
+        sums, prev = self.sums, self.acc
+        self.acc = spmd.run(self.mesh, lambda t, s, d: shard_backward(
+            sums[t][s], self.leaves[t][s], cts[t][s], prev[t][s]))
+        self.sums = None
+
+    def grads(self) -> list:
+        return self.acc
+
+    def close(self) -> None:
+        """Nothing to stop: the shards run in this process."""
+
+
 def make_sharded_accum_loss_grad(mesh, scene: Scene, cfg: RenderConfig, *,
                                  cell_chunk: Optional[int] = None,
                                  sample_chunk: Optional[int] = None, compact: bool = True,
@@ -448,13 +504,23 @@ def make_sharded_accum_loss_grad(mesh, scene: Scene, cfg: RenderConfig, *,
     loss and gradient.  Sample shard s of a tile renders
     samples ``[s*spp_local, (s+1)*spp_local)`` of the tile's cells through
     ``make_diff_render_span`` on its device (the forward kernel, then the
-    replay kernel or the scan VJP, on the card).  The shards' sums are added
-    in shard order on the tile's first device and the loss formed there.
-    The cotangent of every shard's sums is the same,
-    ``ct = 2·mask·(cells - target)/spp``, handed to each shard's backward
-    explicitly; the shards' gradients are added once, in mesh order, on the
+    replay kernels or the scan VJP, on the card).  A chunk runs every
+    shard's forward at once; the shards' sums are added in shard order on
+    the tile's first device and the loss formed there.  The cotangent of
+    every shard's sums is the same, ``ct = 2·mask·(cells - target)/spp``,
+    handed to each shard's backward explicitly; then every shard's backward
+    runs at once, each adding its gradients over the step's chunks on its
+    own device.  Those sums are added once a step, in mesh order, on the
     mesh's first device.  No collective is differentiated, so no gradient
     is counted ``n_samples`` times (the JAX package's psum-vs-pmean trap).
+
+    The shards run in this process, each on its own stream
+    (``parallel/spmd.run``), when the mesh's entries share one device, and
+    in a worker process a device (``parallel/cards.CardShards``) when they
+    span several: one host thread cannot issue several cards' host work as
+    fast as they run it (PERF.md, Findings: the mesh's SPMD execution).
+    Both add in the same order.  ``loss_grad.close()`` stops the workers
+    (also done when ``loss_grad`` is collected).
 
     Returns ``loss_grad(params, targets) -> (loss, grads)`` as
     ``make_accum_loss_grad`` does, on the mesh's first device, with
@@ -466,41 +532,49 @@ def make_sharded_accum_loss_grad(mesh, scene: Scene, cfg: RenderConfig, *,
     cc = min(cell_chunk or n, n)
     cc = -(-cc // n_tiles) * n_tiles
     first = mesh.devices[0][0]
-    scenes = replicate_scene(scene, mesh)
-    spans = {d: make_diff_render_span(sc, cfg, spp_local, sample_chunk, compact=compact,
-                                      replay=replay) for d, sc in scenes.items()}
+    kw = dict(compact=compact, replay=replay)
+    if len(mesh.distinct_devices()) > 1:
+        shards = CardShards(mesh, scene, cfg, spp_local, sample_chunk, max_per=cc // n_tiles,
+                            **kw)
+        span = make_diff_render_span(scene, cfg, spp_local, sample_chunk, **kw).span
+    else:
+        spans = {d: make_diff_render_span(sc, cfg, spp_local, sample_chunk, **kw)
+                 for d, sc in replicate_scene(scene, mesh).items()}
+        shards = _Shards(mesh, spans, spp_local)
+        span = spans[first].span
 
     def loss_grad(params, targets):
         names, values = flatten_params(params)
-        leaves = {d: [v.detach().to(d).requires_grad_(True) for v in values] for d in spans}
-        local = {d: unflatten_params(names, ls) for d, ls in leaves.items()}
-        sq_sum = grads = None
+        shards.start(names, values)
+        sq_sum = None
         for chunk in range(0, n, cc):
             per = -(-(min(chunk + cc, n) - chunk) // n_tiles)
+            sums = shards.forward(chunk, per)
+            cts = []
             for t, row in enumerate(mesh.devices):
                 start = chunk + t * per
-                sums = [spans[d](local[d], torch.arange(start, start + per, device=d),
-                                 s * spp_local) for s, d in enumerate(row)]
                 dev = row[0]
                 ids = torch.arange(start, start + per, device=dev)
-                mask = (ids < n).to(sums[0].dtype)[:, None]
+                mask = (ids < n).to(sums[t][0].dtype)[:, None]
                 target = targets[torch.clamp(ids, max=n - 1).to(targets.device)].to(dev)
                 with torch.no_grad():
-                    cells = sum_shards([x.detach() for x in sums], dev) / cfg.spp
+                    cells = sum_shards(sums[t], dev) / cfg.spp
                     diff = mask * (cells - target)
                     sq = (diff ** 2).sum().to(first)
-                    ct = 2.0 * diff / cfg.spp
+                    cts.append(2.0 * diff / cfg.spp)
                 sq_sum = sq if sq_sum is None else sq_sum + sq
-                for s, d in enumerate(row):
-                    g = torch.autograd.grad(sums[s], leaves[d], grad_outputs=ct.to(d))
-                    g = [x.to(first) for x in g]
-                    grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            shards.backward(cts)
+        grads = None
+        for part in (g for row in shards.grads() for g in row):
+            part = [x.to(first) for x in part]
+            grads = part if grads is None else [a + b for a, b in zip(grads, part)]
         denom = 3 * n
         loss, grads = sq_sum / denom, unflatten_params(names, [g / denom for g in grads])
         debug.guard({"loss": loss, "grads": grads}, "inverse step")
         return loss, grads
 
-    loss_grad.span = spans[first].span
+    loss_grad.span = span
+    loss_grad.close = shards.close
     return loss_grad
 
 
@@ -539,12 +613,14 @@ def make_sharded_train_step(mesh, cfg: RenderConfig, optimizer):
     loss)``: ``optimizer`` is a ``torch.optim`` optimizer over the leaves of
     ``params`` (``flatten_params``), ``cell_ids`` (any id set; its length a
     multiple of ``n_tiles``) and ``target_cells`` [len(cell_ids), 3] are split
-    evenly over the tiles.  Each shard renders its cells for its sample range
-    through the differentiable batch route on its device, from copies of the
-    params that autograd carries back; a tile's loss term is the mean
-    squared error of its cells over ``n_tiles``, and the terms are added in
-    tile order on the mesh's first device.  One backward of that sum gives
-    each gradient once."""
+    evenly over the tiles.  Every shard renders its cells for its sample
+    range at once (``parallel/spmd.run``) through the differentiable batch
+    route on its device, from copies of the params that autograd carries
+    back; a tile's loss term is the mean squared error of its cells over
+    ``n_tiles``, and the terms are added in tile order on the mesh's first
+    device.  One backward of that sum gives each gradient once (autograd
+    runs each device's part on that device's engine thread, on the streams
+    the forward used)."""
     cfg = _diff_cfg(cfg)
     n_tiles = mesh.shape[TILE_AXIS]
     spp_local = samples_per_shard(cfg, mesh.shape[SAMPLE_AXIS])
@@ -556,15 +632,23 @@ def make_sharded_train_step(mesh, cfg: RenderConfig, optimizer):
         per = cell_ids.shape[0] // n_tiles
         optimizer.zero_grad(set_to_none=True)
         names, values = flatten_params(params)
-        local = {d: merge_params(sc, unflatten_params(names, [v.to(d) for v in values]))
+        # Copies on the caller's stream, on every device: the params' own
+        # gradients then accumulate on the stream that made them.
+        local = {d: merge_params(sc, unflatten_params(names, [v.to(d, copy=True)
+                                                              for v in values]))
                  for d, sc in replicate_scene(scene, mesh).items()}
+
+        ids = [[cell_ids[t * per:(t + 1) * per].to(d) for d in row]
+               for t, row in enumerate(mesh.devices)]
+
+        def forward(t, s, d):
+            return render_cells_range(local[d], cfg, ids[t][s], s * spp_local, spp_local)
+
+        sums = spmd.run(mesh, forward)
         loss = None
         for t, row in enumerate(mesh.devices):
             dev = row[0]
-            ids = cell_ids[t * per:(t + 1) * per]
-            sums = [render_cells_range(local[d], cfg, ids.to(d), s * spp_local, spp_local)
-                    for s, d in enumerate(row)]
-            cells = sum_shards(sums, dev) / cfg.spp
+            cells = sum_shards(sums[t], dev) / cfg.spp
             target = target_cells[t * per:(t + 1) * per].to(dev)
             term = (((cells - target) ** 2).mean() / n_tiles).to(first)
             loss = term if loss is None else loss + term

@@ -9,8 +9,10 @@ of devices,
 
 The JAX package hands its grid to ``jax.sharding.Mesh`` and lets
 ``shard_map`` place the work; here ``Mesh`` is only the grid, and
-``parallel/render.py`` and ``grad.py`` loop over its entries in one
-process (``parallel/distributed.py`` spreads the same grid over ranks).
+``parallel/spmd.run`` runs ``parallel/render.py``'s and ``grad.py``'s
+shards on all its entries at once, each entry on a CUDA stream of its own
+(``parallel/cards.py`` gives each card a process for the accumulating step,
+and ``parallel/distributed.py`` spreads the same grid over ranks).
 An entry may name a device more than once, as JAX's virtual CPU devices
 let a 4x2 mesh run on one host: the tests run ``['cpu'] * 8``, and a 2x2
 mesh runs on one card as ``['cuda:0'] * 4``.

@@ -4,9 +4,12 @@ Counterpart of ``cpu_path_tracing_tpu/parallel/render.py``.  Tile t renders
 cells ``[t*per, (t+1)*per)`` (``per = ceil(num_cells / n_tiles)``); sample
 shard s of the tile renders its samples ``[s*spp_local, (s+1)*spp_local)``,
 each shard one ``render.render_cells_range`` call on its device (one launch
-of the forward kernel on the card).  The shards' sums are added on the
-tile's first device in sample-shard order (s = 0, 1, ...), the one-process
-form of the JAX ``psum``, and divided by ``cfg.spp`` there.
+of the forward kernel on the card).  Every shard runs at once, each on a
+stream of its own (``spmd.run``, the JAX ``shard_map``), and every shard's
+launch is enqueued before any result crosses devices.  Then
+the shards' sums are added on the tile's first device in sample-shard order
+(s = 0, 1, ...), the one-process form of the JAX ``psum``, and divided by
+``cfg.spp`` there.
 
 The last tile is padded to ``per`` cells with ids that continue past
 ``num_cells``: every route renders a contiguous span, so JAX's padding by
@@ -27,6 +30,7 @@ import torch
 from ..config import RenderConfig
 from ..models.scene import Scene
 from ..render import finalize_image, render_cells_range
+from . import spmd
 from .mesh import SAMPLE_AXIS, TILE_AXIS, Mesh, make_mesh
 
 
@@ -50,18 +54,6 @@ def replicate_scene(scene: Scene, mesh: Mesh) -> dict:
             for d in mesh.distinct_devices()}
 
 
-def render_tile_sums(scenes: dict, cfg: RenderConfig, row, start: int, per: int) -> torch.Tensor:
-    """Radiance sums [per, 3] over all ``cfg.spp`` samples of cells
-    ``[start, start + per)``: sample shard s on ``row[s]``, the shards added
-    in order on ``row[0]``."""
-    spp_local = cfg.spp // len(row)
-    parts = []
-    for s, dev in enumerate(row):
-        ids = torch.arange(start, start + per, dtype=torch.int64, device=dev)
-        parts.append(render_cells_range(scenes[dev], cfg, ids, s * spp_local, spp_local))
-    return sum_shards(parts, row[0])
-
-
 def sum_shards(parts, device) -> torch.Tensor:
     """The sample shards' sums added in shard order (s = 0, 1, ...) on
     ``device``: one association for every mesh with this sample axis."""
@@ -75,16 +67,25 @@ def render_cells_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh) -> torch.T
     """Mean radiance per cell [num_cells, 3], computed over the mesh and
     returned on its first device."""
     n_tiles = mesh.shape[TILE_AXIS]
-    samples_per_shard(cfg, mesh.shape[SAMPLE_AXIS])
+    spp_local = samples_per_shard(cfg, mesh.shape[SAMPLE_AXIS])
     per = tile_span(cfg, n_tiles)
     scenes = replicate_scene(scene, mesh)
     first = mesh.devices[0][0]
+
+    def shard(t, s, dev):
+        start = t * per
+        if start >= cfg.num_cells:
+            return None  # a tile of padding alone
+        ids = torch.arange(start, start + per, dtype=torch.int64, device=dev)
+        return render_cells_range(scenes[dev], cfg, ids, s * spp_local, spp_local)
+
+    sums = spmd.run(mesh, shard)
     outs = []
     for t, row in enumerate(mesh.devices):
         start = t * per
         if start >= cfg.num_cells:
-            break  # a tile of padding alone
-        means = render_tile_sums(scenes, cfg, row, start, per) / cfg.spp
+            break
+        means = sum_shards(sums[t], row[0]) / cfg.spp
         outs.append(means[:cfg.num_cells - start].to(first))
     return torch.cat(outs, dim=0)
 

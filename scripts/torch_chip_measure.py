@@ -3,7 +3,8 @@
 
     python3 scripts/torch_chip_measure.py
         [--part build|fmad|profile|scenes|train|step|probe|stream|simt|designs|geometry|
-                geometry_designs|geometry_step|sharded|multicard|all] [--baseline DIR]
+                geometry_designs|geometry_step|sharded|multicard|threads|all]
+               [--baseline DIR]
 
 Prints one JSON line per measurement, with the card's nvidia-smi line
 (name, power limit, SM clock, power drawn) before and after.  The parts:
@@ -107,10 +108,16 @@ Prints one JSON line per measurement, with the card's nvidia-smi line
 - multicard: the same paths over every visible card (a machine with
   several): the disco render on tiles-only meshes of 2, 4, ... distinct
   cards against one pass (bitwise, host ms), the production step on a
-  2x(cards/2) mesh against one device (loss and gradients, ms a step),
+  2x(cards/2) mesh (a worker process a card) against one device (loss and
+  gradients, ms a step),
   ``cli render`` with one rank a card (replicated and ``--shard-dir``:
   wall seconds, PNG bytes) and ``cli bench --scaling``.  Not part of
   ``all``.
+- threads: host threads against one host thread: N threads issuing small
+  torch calls or ``render_cells_range`` at once (microseconds a call, also
+  pinned to one core), and the disco render's 4 shards on one card by
+  ``spmd.run``, by a thread a shard and on one stream.  About 30 s; not
+  part of ``all``.
 
 Imports nothing of JAX.  Needs a CUDA device.
 """
@@ -357,6 +364,124 @@ def part_sharded(dev):
 
         times, _ = event_times(call)
         emit({"sharded_train": name, "step_ms": times, "profile": profiled(call)})
+
+
+def part_threads(dev):
+    """Host threads against one host thread.  (1) N threads (1, 2, 4, 8),
+    each on a stream of its own, each making 4,000 in-place adds on a
+    16-element tensor on the card, then the same on the CPU: microseconds a
+    call over all calls, also with every thread pinned to one core.  (2) The
+    same with ``render_cells_range`` of 64 cells on the card (its host
+    path), 100 calls a thread.  (3) The disco render's 4 shards of a 4x1
+    mesh of the card, each a ``render_cells_range`` call: ``spmd.run`` (one
+    host thread, a stream a shard) against a thread a shard (the
+    ``torch.nn.parallel.parallel_apply`` idiom, each thread on the shard's
+    stream) and against one stream, CUDA-event ms (1 warm-up, 5 calls),
+    the three bitwise equal."""
+    import threading
+
+    from cpu_path_tracing_tpu_torch.parallel import spmd
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+    from cpu_path_tracing_tpu_torch.parallel.render import tile_span
+
+    def threaded(n, work, device, pin):
+        streams = [torch.cuda.Stream(device) if device.type == "cuda" else None
+                   for _ in range(n)]
+        barrier = threading.Barrier(n + 1)
+        core = min(os.sched_getaffinity(0))
+
+        def run(i):
+            if pin:
+                os.sched_setaffinity(0, {core})
+            with (torch.cuda.stream(streams[i]) if streams[i] is not None
+                  else contextlib.nullcontext()):
+                prep = work(i, None)
+                barrier.wait()
+                return work(i, prep)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for th in threads:
+            th.start()
+        barrier.wait()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.join()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    def adds(device, n_ops=4000):
+        def work(i, x):
+            if x is None:
+                return torch.zeros(16, device=device)
+            for _ in range(n_ops):
+                x.add_(1)
+        return work, n_ops
+
+    small_cfg = tp.RenderConfig(width=8, height=8, spp=1, max_depth=8)
+    small = tp.get_scene("box", 8, 8).to(dev)
+
+    def renders(device, n_calls=100):
+        def work(i, ids):
+            if ids is None:
+                return torch.arange(64 * i, 64 * (i + 1), device=device)
+            for _ in range(n_calls):
+                render.render_cells_range(small, small_cfg, ids, 0, 1)
+        return work, n_calls
+
+    for name, make, devices in (("add_", adds, (dev, torch.device("cpu"))),
+                                ("render_cells_range_64_cells", renders, (dev,))):
+        for device in devices:
+            for pin in (False, True):
+                work, calls = make(device)
+                threaded(2, work, device, pin)  # warm-up
+                row = {"threads": name, "device": str(device), "pinned_one_core": pin}
+                for n in (1, 2, 4, 8):
+                    row[f"us_a_call_{n}_threads"] = 1e6 * threaded(n, work, device, pin) / (
+                        n * calls)
+                emit(row)
+
+    scene = tp.get_scene("box_mirror", MAIN.width, MAIN.height).to(dev)
+    mesh = make_mesh(4, 1, [dev] * 4)
+    per = tile_span(MAIN, 4)
+    ids = [torch.arange(t * per, (t + 1) * per, device=dev) for t in range(4)]
+
+    def shard(t, s, d):
+        return render.render_cells_range(scene, MAIN, ids[t], 0, MAIN.spp)
+
+    def one_stream():
+        return [shard(t, 0, dev) for t in range(4)]
+
+    def runner():
+        return [row[0] for row in spmd.run(mesh, shard)]
+
+    def thread_a_shard():
+        caller = torch.cuda.current_stream(dev)
+        streams = [spmd.entry_stream(dev, t) for t in range(4)]
+        out = [None] * 4
+
+        def work(t):
+            with torch.cuda.stream(streams[t]):
+                out[t] = shard(t, 0, dev)
+
+        for st in streams:
+            st.wait_stream(caller)
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for st in streams:
+            caller.wait_stream(st)
+        return out
+
+    ref = one_stream()
+    for name, fn in (("one_stream", one_stream), ("spmd_run", runner),
+                     ("thread_a_shard", thread_a_shard), ("thread_a_shard", thread_a_shard),
+                     ("spmd_run", runner), ("one_stream", one_stream)):
+        times, out = event_times(fn, runs=5)
+        emit({"threads": "disco_4x1_shards", "runner": name, "ms": times,
+              "bitwise": all(torch.equal(a, b) for a, b in zip(out, ref))})
 
 
 def part_multicard(dev):
@@ -1217,7 +1342,7 @@ def main() -> int:
     ap.add_argument("--part", choices=("build", "fmad", "profile", "scenes", "train", "step",
                                        "probe", "stream", "simt", "designs", "geometry",
                                        "geometry_designs", "geometry_step", "sharded",
-                                       "multicard", "all"),
+                                       "multicard", "threads", "all"),
                     default="all")
     ap.add_argument("--baseline", default=None,
                     help="--part geometry_designs: another checkout's csrc directory to time "
@@ -1255,6 +1380,8 @@ def main() -> int:
         part_sharded(dev)
     if args.part == "multicard":
         part_multicard(dev)
+    if args.part == "threads":
+        part_threads(dev)
     print("smi", smi(), flush=True)
     return 0
 

@@ -732,3 +732,126 @@ def test_sharded_accum_step_gradients_match_one_device_on_the_card(cuda):
     for k in g:
         assert g2[k].device.type == "cuda"
         assert float((g2[k] - g[k]).abs().max()) <= 1e-5 * float(g[k].abs().max()), k
+
+
+def test_spmd_mesh_render_equals_the_serial_order_on_the_card(cuda):
+    """The 2x2 mesh of one card through the SPMD runner (a worker and a
+    stream a shard) against the same shards run one after another on the
+    current stream, bitwise."""
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+    from cpu_path_tracing_tpu_torch.parallel.render import (render_cells_sharded, sum_shards,
+                                                            tile_span)
+    from cpu_path_tracing_tpu_torch.render import render_cells_range
+
+    cfg = tp.RenderConfig(width=96, height=64, spp=4, max_depth=100)
+    scene = tp.get_scene("box_mirror", cfg.width, cfg.height).to(cuda)
+    got = render_cells_sharded(scene, cfg, make_mesh(2, 2, [cuda] * 4))
+    per = tile_span(cfg, 2)
+    ref = []
+    for t in range(2):
+        ids = torch.arange(t * per, (t + 1) * per, dtype=torch.int64, device=cuda)
+        parts = [render_cells_range(scene, cfg, ids, 2 * s, 2) for s in range(2)]
+        ref.append((sum_shards(parts, cuda) / cfg.spp)[:cfg.num_cells - t * per])
+    assert torch.equal(got, torch.cat(ref))
+
+
+
+def test_spmd_runs_each_entry_on_its_own_stream(cuda):
+    """Every entry of a 2x2 mesh of one card runs on a stream of its own,
+    not the caller's; the four 10 ms waits of one thread each overlap on the
+    card (all four in well under twice one of them)."""
+    from cpu_path_tracing_tpu_torch.parallel import spmd
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+
+    cycles = int(torch.cuda.get_device_properties(cuda).clock_rate * 1e3 * 0.01)  # ~10 ms
+    mesh = make_mesh(2, 2, [cuda] * 4)
+    caller = torch.cuda.current_stream(cuda).cuda_stream
+
+    def shard(t, s, d):
+        torch.cuda._sleep(cycles)
+        return torch.cuda.current_stream(d).cuda_stream
+
+    spmd.run(mesh, shard)  # warm-up
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = spmd.run(mesh, shard)
+    b.record()
+    torch.cuda.synchronize()
+    ids = [x for row in out for x in row]
+    assert len(set(ids)) == 4 and caller not in ids
+    one = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    one[0].record()
+    torch.cuda._sleep(cycles)
+    one[1].record()
+    torch.cuda.synchronize()
+    assert a.elapsed_time(b) < 2 * one[0].elapsed_time(one[1])
+
+
+def test_spmd_hands_work_over_by_the_streams(cuda):
+    """What the caller enqueued before the call is ready when an entry reads
+    it, and an entry's result is ready when the caller reads it, with no
+    synchronize in between: each side's write sits behind a 20 ms wait."""
+    from cpu_path_tracing_tpu_torch.parallel import spmd
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+
+    cycles = int(torch.cuda.get_device_properties(cuda).clock_rate * 1e3 * 0.02)
+    n = 1 << 22
+    torch.cuda._sleep(cycles)
+    y = torch.full((n,), 3.0, device=cuda)
+
+    def shard(t, s, d):
+        got = (y * 2).sum()
+        torch.cuda._sleep(cycles)
+        return got, torch.full((n,), float(t + s), device=d)
+
+    out = spmd.run(make_mesh(2, 2, [cuda] * 4), shard)
+    assert [float(g) for row in out for g, _ in row] == [6.0 * n] * 4
+    assert [float(x.sum()) for row in out for _, x in row] == [0.0, n, n, 2.0 * n]
+
+
+def test_spmd_shard_error_reaches_the_caller_on_the_card(cuda):
+    """A shard that raises on the card fails the call, naming its entry;
+    the next call on the same mesh runs."""
+    from cpu_path_tracing_tpu_torch.parallel import spmd
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, 2, [cuda] * 4)
+
+    def shard(t, s, d):
+        x = torch.full((1 << 20,), float(2 * t + s), device=d)
+        if (t, s) == (1, 0):
+            raise RuntimeError("shard failed")
+        return x.sum()
+
+    with pytest.raises(RuntimeError, match="shard failed") as info:
+        spmd.run(mesh, shard)
+    assert any("in mesh entry (1, 0)" in note for note in info.value.__notes__)
+    out = spmd.run(mesh, lambda t, s, d: torch.full((1 << 20,), float(2 * t + s), device=d).sum())
+    assert [float(x) for row in out for x in row] == [float(i << 20) for i in range(4)]
+
+
+def test_accum_step_over_cards_equals_the_one_card_mesh(cuda):
+    """A 2x2 mesh over two cards (a worker process a card,
+    ``parallel/cards.py``) gives the same mesh shape's loss and gradients on
+    one card, bitwise: the same kernels and the same order of every sum."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from cpu_path_tracing_tpu_torch import grad
+    from cpu_path_tracing_tpu_torch.parallel.mesh import make_mesh
+
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    cfg = tp.RenderConfig(width=64, height=64, spp=8, max_depth=100)
+    scene = tp.get_scene("box", cfg.width, cfg.height).to(c0)
+    target = grad.render_target(scene, cfg)
+    params = {k: v + 0.02 for k, v in grad.split_params(scene, ("albedo", "emission")).items()}
+    one = grad.make_sharded_accum_loss_grad(make_mesh(2, 2, [c0] * 4), scene, cfg,
+                                            cell_chunk=4096)(params, target)
+    cards = grad.make_sharded_accum_loss_grad(make_mesh(2, 2, [c0, c0, c1, c1]), scene, cfg,
+                                              cell_chunk=4096)
+    try:
+        for _ in range(2):
+            loss, g = cards(params, target)
+            assert loss.device == c0 and torch.equal(loss, one[0])
+            assert all(torch.equal(g[k], one[1][k]) for k in g)
+    finally:
+        cards.close()
