@@ -27,7 +27,10 @@ the CPU.  ``--scene-file`` loads a JSON scene (``models/io.py``) in place of
 ``utils/debug.debug_context``: a NaN in a render's sums or an inverse step's
 loss or gradients raises ``FloatingPointError``, on the same route.
 ``--profile-dir DIR`` captures a ``torch.profiler`` trace of the command
-there (``utils/profiling.maybe_trace``).
+there (``utils/profiling.maybe_trace``), with the port's ``pt.*`` spans
+(``pt.render_image``, ``pt.step``, ``pt.grad.*``, ``pt.adam``, the kernel
+wrappers' ``pt.k2``, ``pt.k3``, ``pt.k7``, ``pt.progressive.*``) beside the
+card's rows.
 
 ``render`` renders the image in one pass (``render.render_image``); as
 tiles, retried on failure and resumable from ``--checkpoint``, with
@@ -114,7 +117,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the default; fails without a card) or cpu")
-    p.add_argument("--profile-dir", default=None, help="capture a torch.profiler trace here")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace here, with the port's pt.* spans "
+                   "(pt.render_image, pt.step, pt.grad.*, pt.adam, pt.k2, pt.k3, pt.k7, "
+                   "pt.progressive.*) beside the card's rows")
     p.add_argument("--debug-nans", action="store_true",
                    help="NaN guard: raise FloatingPointError at a NaN in a render's sums or "
                         "an inverse step's loss or gradients (utils/debug.py)")

@@ -61,6 +61,7 @@ from .parallel.mesh import SAMPLE_AXIS, TILE_AXIS, Mesh
 from .parallel.render import replicate_scene, samples_per_shard, sum_shards
 from .render import camera_rays, render_cells_range
 from .utils import debug
+from .utils.profiling import annotate
 
 # Scene fields that may be optimized.
 OPTIMIZABLE = ("p0", "radius", "albedo", "emission", "camera", "background")
@@ -403,21 +404,23 @@ def _adam_step(loss_grad, lr: float):
         state["opt"] = torch.optim.Adam(state["leaves"], lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
     def step(params, targets):
-        names, values = flatten_params(params)
-        if not state:
-            init(names, values)
-        leaves, opt = state["leaves"], state["opt"]
-        if names != state["names"]:
-            raise ValueError(f"step was built for {state['names']}, got {names}")
-        with torch.no_grad():
-            for leaf, v in zip(leaves, values):
-                if v is not leaf:
-                    leaf.copy_(v)
-        loss, grads = loss_grad(unflatten_params(names, leaves), targets)
-        for leaf, g in zip(leaves, flatten_params(grads)[1]):
-            leaf.grad = g
-        opt.step()
-        return unflatten_params(names, [v.detach().clone() for v in leaves]), loss
+        with annotate("pt.step"):
+            names, values = flatten_params(params)
+            if not state:
+                init(names, values)
+            leaves, opt = state["leaves"], state["opt"]
+            if names != state["names"]:
+                raise ValueError(f"step was built for {state['names']}, got {names}")
+            with annotate("pt.adam"), torch.no_grad():
+                for leaf, v in zip(leaves, values):
+                    if v is not leaf:
+                        leaf.copy_(v)
+            loss, grads = loss_grad(unflatten_params(names, leaves), targets)
+            with annotate("pt.adam"):
+                for leaf, g in zip(leaves, flatten_params(grads)[1]):
+                    leaf.grad = g
+                opt.step()
+                return unflatten_params(names, [v.detach().clone() for v in leaves]), loss
 
     def state_dict():
         if not state:
@@ -545,32 +548,37 @@ def make_sharded_accum_loss_grad(mesh, scene: Scene, cfg: RenderConfig, *,
 
     def loss_grad(params, targets):
         names, values = flatten_params(params)
-        shards.start(names, values)
+        with annotate("pt.grad.start"):
+            shards.start(names, values)
         sq_sum = None
         for chunk in range(0, n, cc):
             per = -(-(min(chunk + cc, n) - chunk) // n_tiles)
-            sums = shards.forward(chunk, per)
-            cts = []
-            for t, row in enumerate(mesh.devices):
-                start = chunk + t * per
-                dev = row[0]
-                ids = torch.arange(start, start + per, device=dev)
-                mask = (ids < n).to(sums[t][0].dtype)[:, None]
-                target = targets[torch.clamp(ids, max=n - 1).to(targets.device)].to(dev)
-                with torch.no_grad():
-                    cells = sum_shards(sums[t], dev) / cfg.spp
-                    diff = mask * (cells - target)
-                    sq = (diff ** 2).sum().to(first)
-                    cts.append(2.0 * diff / cfg.spp)
-                sq_sum = sq if sq_sum is None else sq_sum + sq
-            shards.backward(cts)
-        grads = None
-        for part in (g for row in shards.grads() for g in row):
-            part = [x.to(first) for x in part]
-            grads = part if grads is None else [a + b for a, b in zip(grads, part)]
-        denom = 3 * n
-        loss, grads = sq_sum / denom, unflatten_params(names, [g / denom for g in grads])
-        debug.guard({"loss": loss, "grads": grads}, "inverse step")
+            with annotate("pt.grad.forward"):
+                sums = shards.forward(chunk, per)
+            with annotate("pt.grad.cotangent"):
+                cts = []
+                for t, row in enumerate(mesh.devices):
+                    start = chunk + t * per
+                    dev = row[0]
+                    ids = torch.arange(start, start + per, device=dev)
+                    mask = (ids < n).to(sums[t][0].dtype)[:, None]
+                    target = targets[torch.clamp(ids, max=n - 1).to(targets.device)].to(dev)
+                    with torch.no_grad():
+                        cells = sum_shards(sums[t], dev) / cfg.spp
+                        diff = mask * (cells - target)
+                        sq = (diff ** 2).sum().to(first)
+                        cts.append(2.0 * diff / cfg.spp)
+                    sq_sum = sq if sq_sum is None else sq_sum + sq
+            with annotate("pt.grad.backward"):
+                shards.backward(cts)
+        with annotate("pt.grad.accumulate"):
+            grads = None
+            for part in (g for row in shards.grads() for g in row):
+                part = [x.to(first) for x in part]
+                grads = part if grads is None else [a + b for a, b in zip(grads, part)]
+            denom = 3 * n
+            loss, grads = sq_sum / denom, unflatten_params(names, [g / denom for g in grads])
+            debug.guard({"loss": loss, "grads": grads}, "inverse step")
         return loss, grads
 
     loss_grad.span = span

@@ -41,6 +41,7 @@ import torch
 from ... import _build
 from ...config import RenderConfig
 from ...models.camera import get_rays
+from ...utils.profiling import annotate
 from ..geometry_replay import (
     geometry_grads_from_partials,
     geometry_items,
@@ -174,11 +175,13 @@ def geometry_param_grads_kernel(scene, cfg: RenderConfig, cell_ids, sample_start
     ``ct`` [B,3].  Returns the gradients in the scene's dtype."""
     from ...render import check_contiguous_cells  # render imports the kernels
 
-    check_contiguous_cells(cell_ids)
-    n_cells = int(cell_ids.shape[0])
-    dyn = (int(cell_ids[0]) if n_cells else 0, int(sample_start))
-    dt = scene.dtype
-    part, _ = geometry_replay(pack_scene(scene, dt), pack_camera(scene, dt), dyn,
-                              ct.to(dt).contiguous(), cfg=cfg, n_cells=n_cells,
-                              n_items=n_cells * num_samples, ior=scene.ior)
-    return geometry_grads_from_partials(scene, part)
+    with annotate("pt.k7"):
+        check_contiguous_cells(cell_ids)
+        n_cells = int(cell_ids.shape[0])
+        dyn = (int(cell_ids[0]) if n_cells else 0, int(sample_start))
+        dt = scene.dtype
+        part, _ = geometry_replay(pack_scene(scene, dt), pack_camera(scene, dt), dyn,
+                                  ct.to(dt).contiguous(), cfg=cfg, n_cells=n_cells,
+                                  n_items=n_cells * num_samples, ior=scene.ior)
+        with annotate("pt.k7.map"):
+            return geometry_grads_from_partials(scene, part)

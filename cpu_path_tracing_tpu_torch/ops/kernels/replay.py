@@ -36,6 +36,7 @@ import torch
 
 from ... import _build
 from ...config import RenderConfig
+from ...utils.profiling import annotate
 from ..replay import grads_from_partials, n_partials, replay_items
 from .megakernel import (
     COUNTER_WORDS,
@@ -190,11 +191,12 @@ def replay_param_grads_kernel(scene, cfg: RenderConfig, cell_ids, sample_start: 
     scene's dtype."""
     from ...render import check_contiguous_cells  # render imports the kernels
 
-    check_contiguous_cells(cell_ids)
-    n_cells = int(cell_ids.shape[0])
-    dyn = (int(cell_ids[0]) if n_cells else 0, int(sample_start))
-    dt = scene.dtype
-    part, _ = replay_persistent(pack_scene(scene, dt), pack_camera(scene, dt), dyn,
+    with annotate("pt.k3"):
+        check_contiguous_cells(cell_ids)
+        n_cells = int(cell_ids.shape[0])
+        dyn = (int(cell_ids[0]) if n_cells else 0, int(sample_start))
+        dt = scene.dtype
+        part, _ = replay_persistent(pack_scene(scene, dt), pack_camera(scene, dt), dyn,
                                     ct.to(dt).contiguous(), cfg=cfg, n_cells=n_cells,
                                     n_items=n_cells * num_samples, ior=scene.ior)
-    return {k: v.to(dt) for k, v in grads_from_partials(scene.albedo, part).items()}
+        return {k: v.to(dt) for k, v in grads_from_partials(scene.albedo, part).items()}

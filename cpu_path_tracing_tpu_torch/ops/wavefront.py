@@ -36,6 +36,7 @@ import functools
 import torch
 
 from ..config import RenderConfig
+from ..utils.profiling import annotate
 from .kernels.megakernel import (
     init_lane_state,
     megakernel_step,
@@ -79,13 +80,14 @@ def render_wavefront_persistent(scene, cfg: RenderConfig, cell_ids, sample_start
     for each cell of ``cell_ids``, a contiguous ascending span.  Returns
     [n_cells, 3] in the scene's dtype, plus ``{segments, iters, lanes}``
     when asked (ops/kernels/megakernel.py defines them)."""
-    n_cells, cell_start, n_items = _span(scene, cell_ids, num_samples)
-    dtype = scene.dtype
-    table = pack_scene(scene, dtype)
-    cam = pack_camera(scene, dtype)
-    out, stats = persistent_render(table, cam, (cell_start, sample_start), cfg=cfg,
-                                   n_cells=n_cells, n_items=n_items, ior=scene.ior)
-    sums = _cell_sums(out, num_samples, n_cells)
+    with annotate("pt.k2"):
+        n_cells, cell_start, n_items = _span(scene, cell_ids, num_samples)
+        dtype = scene.dtype
+        table = pack_scene(scene, dtype)
+        cam = pack_camera(scene, dtype)
+        out, stats = persistent_render(table, cam, (cell_start, sample_start), cfg=cfg,
+                                       n_cells=n_cells, n_items=n_items, ior=scene.ior)
+        sums = _cell_sums(out, num_samples, n_cells)
     if with_stats:
         return sums, stats
     return sums

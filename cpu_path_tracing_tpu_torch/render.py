@@ -28,6 +28,7 @@ from .ops.wavefront import (
     render_wavefront_persistent,
 )
 from .utils import debug
+from .utils.profiling import annotate
 
 
 def decode_cells(cell_ids, cfg: RenderConfig):
@@ -197,19 +198,23 @@ def render_image(scene, cfg: RenderConfig) -> torch.Tensor:
     """Render the full image on the scene's device: linear radiance
     [H,W,3].  Cells are chunked by ``cfg.ray_chunk`` (whole pixels per
     chunk); samples are chunked only above ``sample_chunk_for``'s item cap."""
-    n = cfg.num_cells
-    ns2 = cfg.num_subpixels * cfg.num_subpixels
-    chunk = cfg.ray_chunk or n
-    chunk = max(ns2, chunk - chunk % ns2)
-    outs = []
-    for start in range(0, n, chunk):
-        ids = torch.arange(start, min(start + chunk, n), dtype=torch.int64, device=scene.device)
-        schunk = sample_chunk_for(cfg.spp, ids.shape[0])
-        if schunk == cfg.spp:
-            outs.append(render_cells(scene, cfg, ids))
-            continue
-        acc = render_cells_range(scene, cfg, ids, 0, schunk)
-        for s0 in range(schunk, cfg.spp, schunk):
-            acc = acc + render_cells_range(scene, cfg, ids, s0, schunk)
-        outs.append(acc / cfg.spp)
-    return finalize_image(torch.cat(outs, dim=0), cfg)
+    with annotate("pt.render_image"):
+        n = cfg.num_cells
+        ns2 = cfg.num_subpixels * cfg.num_subpixels
+        chunk = cfg.ray_chunk or n
+        chunk = max(ns2, chunk - chunk % ns2)
+        outs = []
+        for start in range(0, n, chunk):
+            with annotate("pt.render.setup"):
+                ids = torch.arange(start, min(start + chunk, n), dtype=torch.int64,
+                                   device=scene.device)
+                schunk = sample_chunk_for(cfg.spp, ids.shape[0])
+            if schunk == cfg.spp:
+                outs.append(render_cells(scene, cfg, ids))
+                continue
+            acc = render_cells_range(scene, cfg, ids, 0, schunk)
+            for s0 in range(schunk, cfg.spp, schunk):
+                acc = acc + render_cells_range(scene, cfg, ids, s0, schunk)
+            outs.append(acc / cfg.spp)
+        with annotate("pt.render.finalize"):
+            return finalize_image(torch.cat(outs, dim=0), cfg)

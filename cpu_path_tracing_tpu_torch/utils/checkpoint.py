@@ -211,15 +211,15 @@ def render_progressive(scene: Scene, cfg: RenderConfig, checkpoint_path: Optiona
 
     while state.spp_done < cfg.spp:
         n = min(flush_every, cfg.spp - state.spp_done)
-        with annotate("render_batch"):
+        with annotate("pt.progressive.batch"):
             batch = render_cells_range(scene, cfg, cell_ids, state.spp_done, n)
-        with annotate("checkpoint_flush"):
+        with annotate("pt.progressive.flush"):
             state.sums = state.sums + batch.cpu().numpy()
             state.spp_done += n
             if checkpoint_path:
                 state.save(checkpoint_path)
         if preview_path and state.spp_done < cfg.spp:
-            with annotate("preview_encode"):
+            with annotate("pt.progressive.encode"):
                 partial = _final_image(state.sums, state.spp_done, cfg, scene.device)
                 write_png_async(preview_path, partial.cpu().numpy().astype(np.float32))
         if progress:

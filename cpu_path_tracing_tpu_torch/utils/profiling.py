@@ -2,9 +2,10 @@
 
 ``maybe_trace`` captures a ``torch.profiler`` trace around any render (a
 Chrome trace, viewable in Perfetto or chrome://tracing), ``annotate`` names
-a pipeline phase in such a trace (and in an NVTX timeline on the card),
-``device_time_by_kernel`` sums a profile's device time by kernel name and
-``device_kernel_ms`` lists one kernel's launches in the order they ran.
+a phase of the program in such a trace (the ``pt.*`` spans of the step and
+image paths), ``device_time_by_kernel`` sums a profile's device time by
+kernel name and ``device_kernel_ms`` lists one kernel's launches in the
+order they ran.
 """
 
 from __future__ import annotations
@@ -36,18 +37,20 @@ def maybe_trace(profile_dir=None):
                                           f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
+# What ``annotate`` returns while no profiler records: one shared object.
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named scope that shows up in profiler traces."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """A span named ``name`` in the profile being recorded: a
+    ``torch.profiler.record_function``, in the same timeline as the card's
+    rows, on whichever thread enters it (autograd's device thread too,
+    which inherits the caller's profiler state).  While no profiler records
+    it is a shared no-op context manager, so that a span on the hot path
+    costs one check."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def device_time_by_kernel(prof) -> dict:
