@@ -513,7 +513,7 @@ def _bench_one(scene_name, width, height, total_spp, *, device, integrator="auto
                        integrator=integrator, **({} if lanes is None else
                                                  {"wavefront_lanes": lanes}))
     scene = get_scene(scene_name, width, height).to(device)
-    ids = torch.arange(cfg.num_cells, device=device)
+    ids = range(cfg.num_cells)
     chunk = sample_chunk_for(spp, cfg.num_cells)
 
     def run():
@@ -709,7 +709,7 @@ def cmd_bench(args) -> int:
     scene = _scene(args, cfg)
     render_span = (render_wavefront_per_step if resolve_integrator(scene, cfg) == "pallas"
                    else render_wavefront)
-    ids = torch.arange(cfg.num_cells, device=scene.device)
+    ids = range(cfg.num_cells)
 
     def run():
         return render_span(scene, cfg, ids, 0, cfg.spp, with_stats=True)

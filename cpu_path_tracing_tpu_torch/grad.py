@@ -281,7 +281,10 @@ class _RenderSpan(torch.autograd.Function):
         fields = {n.partition(".")[0] for n in names}
         g = {}
         if route == "geometry":
-            g.update(geometry_param_grads_kernel(*args))
+            # The camera's partials go through an autograd pass of
+            # build_camera, hundreds of small launches a span: only when
+            # the camera is a field.
+            g.update(geometry_param_grads_kernel(*args, camera="camera" in fields))
             if fields & set(OPTIMIZABLE_REPLAY):
                 g.update(replay_param_grads_kernel(*args))
         else:
@@ -296,9 +299,13 @@ def make_diff_render_span(scene: Scene, cfg: RenderConfig, spp_span: int,
     """Differentiable per-cell radiance SUM over ``spp_span`` samples from a
     ``sample_start``: ``render_sum(params, cell_ids, sample_start) -> [B,3]``,
     differentiable with respect to ``params`` (any fields of
-    ``OPTIMIZABLE``).  The forward takes the config's route (a contiguous
-    cell span); the backward recomputes ``sample_chunk`` samples at a time
-    (the memory knob: one chunk's tape at a time), or runs the replay
+    ``OPTIMIZABLE``).  ``cell_ids`` is a contiguous cell span: a host
+    ``range``, or an id tensor, which alone the forward and the backward's
+    kernel wrappers read back from its device
+    (``ops/kernels/megakernel.cell_span``); the routes that take any id set
+    make a range a ``torch.arange`` on the device.  The forward takes the
+    config's route; the backward recomputes ``sample_chunk`` samples at a
+    time (the memory knob: one chunk's tape at a time), or runs the replay
     (module docstring).  ``render_sum.span.bwd_cfg`` is the scan VJP's config."""
     chunk = sample_chunk or spp_span
     if spp_span % chunk:
@@ -444,9 +451,9 @@ def _adam_step(loss_grad, lr: float):
 def shard_forward(span, names, leaves, start: int, per: int, sample_start: int):
     """One shard's differentiable sums [per, 3] of cells ``[start, start +
     per)`` from ``sample_start``, through ``span`` (``make_diff_render_span``)
-    on the leaves' device."""
-    return span(unflatten_params(names, leaves),
-                torch.arange(start, start + per, device=leaves[0].device), sample_start)
+    on the leaves' device.  The cells go as a host ``range``, so no launch
+    reads their start back from the device."""
+    return span(unflatten_params(names, leaves), range(start, start + per), sample_start)
 
 
 def shard_backward(sums, leaves, ct, prev):
@@ -608,7 +615,7 @@ def render_target(scene: Scene, cfg: RenderConfig, cell_chunk: Optional[int] = N
     outs = []
     with torch.no_grad():
         for start in range(0, n, cc):
-            ids = torch.arange(start, min(start + cc, n), dtype=torch.int64, device=scene.device)
+            ids = range(start, min(start + cc, n))
             outs.append(render_cells_range(scene, cfg, ids, 0, cfg.spp) / cfg.spp)
     return torch.cat(outs, dim=0)
 

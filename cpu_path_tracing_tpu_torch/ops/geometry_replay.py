@@ -441,16 +441,20 @@ def geometry_items(spheres, camera, origins, directions, keys, screen, ct, *, ma
                       "sweep_bounces": sweep_bounces, "tied_bounces": tied_bounces}
 
 
-def geometry_grads_from_partials(scene, partials):
+def geometry_grads_from_partials(scene, partials, camera: bool = True):
     """``{'p0', 'radius', 'camera'}`` from a ``[4N+14]`` partials vector
     (module docstring layout), in the scene's dtype.  The camera partials
     are taken to the eight ``CameraConfig`` leaves by autograd through
-    ``build_camera`` (in the partials' dtype)."""
+    ``build_camera`` (in the partials' dtype); with ``camera`` False they
+    are not, and the dict holds p0 and radius alone."""
     from ..models.camera import FIELDS, CameraConfig, build_camera
 
     n = scene.num_spheres
     b = {k: partials[sl] for k, sl in geometry_partial_blocks(n).items()}
     dt = scene.dtype
+    out = {"p0": b["p0"].reshape(n, 3).to(dt), "radius": b["radius"].to(dt)}
+    if not camera:
+        return out
     with torch.enable_grad():
         leaves = {f: getattr(scene.camera, f).detach().to(partials.dtype).requires_grad_(True)
                   for f in FIELDS}
@@ -459,6 +463,5 @@ def geometry_grads_from_partials(scene, partials):
                             cam.lens_radius.reshape(1), cam.origin_advance.reshape(1)])
         g = torch.autograd.grad((packed * b["camera"]).sum(), [leaves[f] for f in FIELDS],
                                 allow_unused=True, materialize_grads=True)
-    return {"p0": b["p0"].reshape(n, 3).to(dt), "radius": b["radius"].to(dt),
-            "camera": CameraConfig(**{f: v.to(dt) for f, v in zip(FIELDS, g)})}
+    return {**out, "camera": CameraConfig(**{f: v.to(dt) for f, v in zip(FIELDS, g)})}
 

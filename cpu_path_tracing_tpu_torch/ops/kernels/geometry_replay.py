@@ -51,6 +51,7 @@ from .megakernel import (
     _check,
     _unpack,
     camera_samples_for_items,
+    cell_span,
     index_bits,
     launch_params,
     pack_camera,
@@ -167,21 +168,20 @@ geometry_replay.launches = 0
 
 
 def geometry_param_grads_kernel(scene, cfg: RenderConfig, cell_ids, sample_start: int,
-                                num_samples: int, ct):
+                                num_samples: int, ct, *, camera: bool = True):
     """Gradients of ``sum(ct * render_cells_range(scene, cfg, cell_ids,
-    sample_start, num_samples))`` with respect to p0, radius and the camera
-    (a ``CameraConfig`` of its eight leaves), by one ``geometry_replay`` call
-    over the span's items.  ``cell_ids`` is a contiguous ascending span;
-    ``ct`` [B,3].  Returns the gradients in the scene's dtype."""
-    from ...render import check_contiguous_cells  # render imports the kernels
-
+    sample_start, num_samples))`` with respect to p0, radius and, with
+    ``camera``, the camera (a ``CameraConfig`` of its eight leaves), by one
+    ``geometry_replay`` call over the span's items.  ``cell_ids`` is a
+    contiguous ascending span: a host ``range``, or an id tensor, which alone
+    is read back from its device (``megakernel.cell_span``); ``ct`` [B,3].
+    Returns the gradients in the scene's dtype."""
     with annotate("pt.k7"):
-        check_contiguous_cells(cell_ids)
-        n_cells = int(cell_ids.shape[0])
-        dyn = (int(cell_ids[0]) if n_cells else 0, int(sample_start))
+        cell_start, n_cells = cell_span(cell_ids)
+        dyn = (cell_start, int(sample_start))
         dt = scene.dtype
         part, _ = geometry_replay(pack_scene(scene, dt), pack_camera(scene, dt), dyn,
                                   ct.to(dt).contiguous(), cfg=cfg, n_cells=n_cells,
                                   n_items=n_cells * num_samples, ior=scene.ior)
         with annotate("pt.k7.map"):
-            return geometry_grads_from_partials(scene, part)
+            return geometry_grads_from_partials(scene, part, camera)

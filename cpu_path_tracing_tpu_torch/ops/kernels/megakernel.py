@@ -62,6 +62,7 @@ import torch
 from ... import _build
 from ...config import RenderConfig
 from ...models.camera import Camera, build_camera, get_rays
+from ...utils.profiling import annotate
 from .. import rng as rng_ops
 from ..integrator import RayState, bounce_step, radiance
 
@@ -133,6 +134,40 @@ def _check(table, cam, dyn):
         raise ValueError("table and cam must share one device and dtype")
     if len(dyn) != 2:
         raise ValueError("dyn is (cell_start, sample_start)")
+
+
+def cell_span(cells) -> tuple:
+    """``(cell_start, n_cells)`` of a contiguous ascending cell span, which
+    a launch regenerates as ``cell_start + offset``.
+
+    ``cells`` is a host ``range`` of step 1, as the port's own callers pass
+    it: read with no torch call, so nothing waits on the card.  Or an id
+    tensor, as a public caller may pass: its contiguity is checked and its
+    first id read back from its device (two syncs), under a
+    ``pt.cells.readback`` span.  Any other id set raises ValueError instead
+    of rendering the wrong cells."""
+    if isinstance(cells, range):
+        n = len(cells)
+        if n > 1 and cells.step != 1:
+            raise ValueError(f"render launches need a contiguous ascending cell span "
+                             f"(got {cells})")
+        return (cells.start if n else 0), n
+    with annotate("pt.cells.readback"):
+        n = int(cells.shape[0])
+        if n > 1 and not bool(torch.all(torch.diff(cells) == 1)):
+            raise ValueError("render launches need a contiguous ascending cell_ids span "
+                             "(got a non-contiguous id set)")
+        return (int(cells[0]) if n else 0), n
+
+
+def cell_ids_of(cells, device) -> torch.Tensor:
+    """The int64 id tensor of ``cells`` on ``device``, for the routes that
+    take any id set: a host ``range`` becomes a ``torch.arange`` there (no
+    sync), a tensor is returned as it is."""
+    if isinstance(cells, range):
+        return torch.arange(cells.start, cells.stop, cells.step, dtype=torch.int64,
+                            device=device)
+    return cells
 
 
 def check_kernel_config(cfg: RenderConfig, dtype: torch.dtype) -> None:

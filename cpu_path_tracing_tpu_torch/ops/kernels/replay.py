@@ -43,6 +43,7 @@ from .megakernel import (
     REFERENCE_CHUNK,
     _check,
     _unpack,
+    cell_span,
     check_kernel_config,
     index_bits,
     item_rays,
@@ -187,14 +188,12 @@ def replay_param_grads_kernel(scene, cfg: RenderConfig, cell_ids, sample_start: 
     sample_start, num_samples))`` with respect to albedo, emission and
     background, by one ``replay_persistent`` call over the span's items
     (counterpart of ``replay_param_grads_pallas``).  ``cell_ids`` is a
-    contiguous ascending span; ``ct`` [B,3].  Returns the gradients in the
-    scene's dtype."""
-    from ...render import check_contiguous_cells  # render imports the kernels
-
+    contiguous ascending span: a host ``range``, or an id tensor, which alone
+    is read back from its device (``megakernel.cell_span``); ``ct`` [B,3].
+    Returns the gradients in the scene's dtype."""
     with annotate("pt.k3"):
-        check_contiguous_cells(cell_ids)
-        n_cells = int(cell_ids.shape[0])
-        dyn = (int(cell_ids[0]) if n_cells else 0, int(sample_start))
+        cell_start, n_cells = cell_span(cell_ids)
+        dyn = (cell_start, int(sample_start))
         dt = scene.dtype
         part, _ = replay_persistent(pack_scene(scene, dt), pack_camera(scene, dt), dyn,
                                     ct.to(dt).contiguous(), cfg=cfg, n_cells=n_cells,

@@ -47,6 +47,7 @@ import torch
 
 from . import rng as rng_ops
 from .integrator import bounce_step, init_state
+from .kernels.megakernel import cell_ids_of
 
 
 def n_partials(n_spheres: int) -> int:
@@ -150,11 +151,13 @@ def replay_param_grads(scene, cfg, cell_ids, sample_start: int, num_samples: int
     scene's dtype (the float64 oracle).
 
     Args:
+      cell_ids: any id set, a tensor or a host ``range``.
       ct: [B,3] per-cell cotangent (B == len(cell_ids)).
     Returns ``{'albedo': [N,3], 'emission': [N,3], 'background': [2,3]}``.
     """
     from ..render import camera_rays  # render imports the kernels
 
+    cell_ids = cell_ids_of(cell_ids, scene.device)
     dt = scene.dtype
     total = None
     for i in range(num_samples):

@@ -38,6 +38,7 @@ import torch
 from ..config import RenderConfig
 from ..utils.profiling import annotate
 from .kernels.megakernel import (
+    cell_span,
     init_lane_state,
     megakernel_step,
     megakernel_step_batch,
@@ -55,15 +56,6 @@ STEP_BATCH = 16
 STEPS_PER_LAUNCH = 8
 
 
-def _span(scene, cell_ids, num_samples: int):
-    from ..render import check_contiguous_cells  # render imports this module
-
-    check_contiguous_cells(cell_ids)
-    n_cells = int(cell_ids.shape[0])
-    cell_start = int(cell_ids[0]) if n_cells else 0
-    return n_cells, cell_start, n_cells * num_samples
-
-
 def _cell_sums(out, num_samples: int, n_cells: int):
     """Per-item radiance [3, num_samples * n_cells] -> per-cell sums
     [n_cells, 3], adding samples in sequence."""
@@ -77,16 +69,19 @@ def _cell_sums(out, num_samples: int, n_cells: int):
 def render_wavefront_persistent(scene, cfg: RenderConfig, cell_ids, sample_start: int,
                                 num_samples: int, *, with_stats: bool = False):
     """SUM of radiance over samples [sample_start, sample_start+num_samples)
-    for each cell of ``cell_ids``, a contiguous ascending span.  Returns
-    [n_cells, 3] in the scene's dtype, plus ``{segments, iters, lanes}``
-    when asked (ops/kernels/megakernel.py defines them)."""
+    for each cell of ``cell_ids``, a contiguous ascending span: a host
+    ``range``, or an id tensor, which alone is read back from its device
+    (``ops/kernels/megakernel.cell_span``).  Returns [n_cells, 3] in the
+    scene's dtype, plus ``{segments, iters, lanes}`` when asked
+    (ops/kernels/megakernel.py defines them)."""
     with annotate("pt.k2"):
-        n_cells, cell_start, n_items = _span(scene, cell_ids, num_samples)
+        cell_start, n_cells = cell_span(cell_ids)
         dtype = scene.dtype
         table = pack_scene(scene, dtype)
         cam = pack_camera(scene, dtype)
         out, stats = persistent_render(table, cam, (cell_start, sample_start), cfg=cfg,
-                                       n_cells=n_cells, n_items=n_items, ior=scene.ior)
+                                       n_cells=n_cells, n_items=n_cells * num_samples,
+                                       ior=scene.ior)
         sums = _cell_sums(out, num_samples, n_cells)
     if with_stats:
         return sums, stats
@@ -103,8 +98,9 @@ def drive_items(step, scene, cfg: RenderConfig, cell_ids, sample_start: int,
     replay of a CUDA graph (``megakernel_step_batch``); any other ``step``,
     and any scene on the CPU, runs launch by launch.  Returns per-item
     radiance (out [3, n_items], item = sample * n_cells + c) and the stats
-    ``{segments, iters, lanes}``."""
-    n_cells, cell_start, n_items = _span(scene, cell_ids, num_samples)
+    ``{segments, iters, lanes}``.  ``cell_ids`` as ``cell_span`` takes it."""
+    cell_start, n_cells = cell_span(cell_ids)
+    n_items = n_cells * num_samples
     dtype, device = scene.dtype, scene.device
     B = max(1, min(lanes or cfg.wavefront_lanes, n_items))
     out = torch.empty((3, n_items), dtype=dtype, device=device)
@@ -161,7 +157,7 @@ def render_wavefront(scene, cfg: RenderConfig, cell_ids, sample_start: int,
         hist = torch.zeros(cfg.max_depth, dtype=torch.int64, device=scene.device)
     step = functools.partial(megakernel_step_reference, hist=hist)
     out, stats = drive_items(step, scene, cfg, cell_ids, sample_start, num_samples, lanes)
-    sums = _cell_sums(out, num_samples, int(cell_ids.shape[0]))
+    sums = _cell_sums(out, num_samples, len(cell_ids))
     if not with_stats:
         return sums
     if depth_hist:
@@ -177,7 +173,7 @@ def render_wavefront_per_step(scene, cfg: RenderConfig, cell_ids, sample_start: 
     scene its plain version."""
     out, stats = drive_items(megakernel_step, scene, cfg, cell_ids, sample_start, num_samples,
                         lanes)
-    sums = _cell_sums(out, num_samples, int(cell_ids.shape[0]))
+    sums = _cell_sums(out, num_samples, len(cell_ids))
     if with_stats:
         return sums, stats
     return sums

@@ -118,8 +118,8 @@ def render_tiled(scene: Scene, cfg: RenderConfig, *, tile_cells: Optional[int] =
                  render_fn: Optional[Callable] = None) -> torch.Tensor:
     """Render the image as independent retried tiles; returns the linear
     image [H,W,3] on the scene's device.  ``render_fn(scene, ids, start,
-    n)`` renders one tile (default ``render_cells_range``); tests pass one
-    to count the tiles rendered."""
+    n)`` renders one tile, its cells ``ids`` a host ``range`` (default
+    ``render_cells_range``); tests pass one to count the tiles rendered."""
     spans, tile_cells = tile_spans(cfg, tile_cells or cfg.num_cells)
     n_tiles = len(spans)
     fp = _fingerprint(scene, cfg) + f"/spp{cfg.spp}/tc{tile_cells}"
@@ -141,7 +141,7 @@ def render_tiled(scene: Scene, cfg: RenderConfig, *, tile_cells: Optional[int] =
     for tile, (s, e) in enumerate(spans):
         if state.done[tile]:
             continue
-        ids = torch.arange(s, e, device=scene.device)
+        ids = range(s, e)
         last_err: Optional[Exception] = None
         for _attempt in range(max_retries + 1):
             try:

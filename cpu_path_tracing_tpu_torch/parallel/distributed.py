@@ -123,7 +123,7 @@ def _shard_sums(scene: Scene, cfg: RenderConfig, mesh: Mesh):
     """This rank's sums [per, 3] over its sample shard, on its device."""
     t, s, per = _my_shard(cfg, mesh)
     spp_local = samples_per_shard(cfg, mesh.shape["samples"])
-    ids = torch.arange(t * per, (t + 1) * per, dtype=torch.int64, device=scene.device)
+    ids = range(t * per, (t + 1) * per)
     return render_cells_range(scene, cfg, ids, s * spp_local, spp_local), t, per
 
 
@@ -267,8 +267,7 @@ def recover_missing_cells(cells: np.ndarray, scene: Scene, cfg: RenderConfig) ->
     stops = np.concatenate([breaks, [missing.size - 1]])
     for a, b in zip(missing[starts], missing[stops]):
         a, b = int(a), int(b) + 1
-        ids = torch.arange(a, b, dtype=torch.int64, device=scene.device)
-        means = render_cells_range(scene, cfg, ids, 0, cfg.spp) / cfg.spp
+        means = render_cells_range(scene, cfg, range(a, b), 0, cfg.spp) / cfg.spp
         cells[a:b] = means.cpu().numpy().astype(np.float32)
         spans.append((a, b))
     return spans

@@ -76,8 +76,8 @@ def render_cells_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh) -> torch.T
         start = t * per
         if start >= cfg.num_cells:
             return None  # a tile of padding alone
-        ids = torch.arange(start, start + per, dtype=torch.int64, device=dev)
-        return render_cells_range(scenes[dev], cfg, ids, s * spp_local, spp_local)
+        return render_cells_range(scenes[dev], cfg, range(start, start + per),
+                                  s * spp_local, spp_local)
 
     sums = spmd.run(mesh, shard)
     outs = []

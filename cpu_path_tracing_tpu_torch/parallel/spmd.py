@@ -7,7 +7,7 @@ calls ``fn(t, s, device)`` for every entry ``(t, s)`` of the mesh, in mesh
 order, each call inside ``torch.cuda.device(device)`` and
 ``torch.cuda.stream(st)``, ``st`` the entry's own CUDA stream
 (``entry_stream``).  A call only enqueues its shard's work; a host read
-inside it (``int(cell_ids[0])``, ``.item()``) waits on that entry's stream
+inside it (``int(t)``, ``.item()``) waits on that entry's stream
 alone.  So the host enqueues every shard without waiting for the one before
 it, and the shards run at once: each on its own card, and on a mesh that
 repeats a card (``[cuda:0] * 4``) each on its own stream of it, as far as

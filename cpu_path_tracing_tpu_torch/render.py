@@ -21,7 +21,7 @@ from .config import RenderConfig
 from .models.camera import build_camera, get_rays
 from .ops import rng as rng_ops
 from .ops.integrator import radiance, radiance_compact
-from .ops.kernels.megakernel import check_kernel_config
+from .ops.kernels.megakernel import cell_ids_of, check_kernel_config
 from .ops.wavefront import (
     render_wavefront,
     render_wavefront_per_step,
@@ -78,14 +78,6 @@ def camera_rays(scene, cfg: RenderConfig, cell_ids, sample_idx: int, dtype):
     return (a0, a1), o, d
 
 
-def check_contiguous_cells(cell_ids) -> None:
-    """Launches regenerate cells as ``cell_ids[0] + offset``; reject any
-    other id set instead of rendering the wrong cells."""
-    if cell_ids.numel() > 1 and not bool(torch.all(torch.diff(cell_ids) == 1)):
-        raise ValueError("render launches need a contiguous ascending cell_ids span "
-                         "(got a non-contiguous id set)")
-
-
 def _on_cuda(scene) -> bool:
     return scene.device.type == "cuda"
 
@@ -127,7 +119,9 @@ def render_batch(scene, cfg: RenderConfig, cell_ids, sample_start: int, num_samp
     """The 'batch' route (JAX ``render.py:152-179``): per sample, the rays of
     every cell in ``cell_ids`` (any id set) through ``radiance`` with
     ``cfg.loop`` and ``cfg.remat``, or through ``radiance_compact`` when
-    ``cfg.compact_schedule`` is set; the samples summed in order.  [B,3]."""
+    ``cfg.compact_schedule`` is set; the samples summed in order.  A host
+    ``range`` becomes a ``torch.arange`` on the scene's device.  [B,3]."""
+    cell_ids = cell_ids_of(cell_ids, scene.device)
     kw = dict(max_depth=cfg.max_depth, rr_depth=cfg.rr_depth, epsilon=cfg.epsilon,
               inf=cfg.inf, loop=cfg.loop, remat=cfg.remat)
     acc = None
@@ -148,9 +142,12 @@ def render_cells_range(scene, cfg: RenderConfig, cell_ids, sample_start: int,
     for each cell: [B,3], unclamped, unnormalized (plus the launch's stats
     with ``with_stats``, which the batch route does not keep).  Any
     partition of the sample range sums to the same total up to float
-    association.  Dispatch as JAX ``render.py:135-150``: 'batch' ->
-    ``render_batch`` (any id set; every other route takes a contiguous
-    span); 'wavefront' -> ``render_wavefront``; 'pallas' -> the
+    association.  ``cell_ids`` is an id tensor or a host ``range``.
+    Dispatch as JAX ``render.py:135-150``: 'batch' -> ``render_batch`` (any
+    id set); every other route takes a contiguous ascending span, whose
+    start it reads from a range on the host and from a tensor alone by a
+    read-back from its device (``ops/kernels/megakernel.cell_span``);
+    'wavefront' -> ``render_wavefront``; 'pallas' -> the
     whole-render kernel, or with ``cfg.pallas_persistent=False`` the
     per-step kernel; 'plain' -> the whole-render kernel's wrapper, which
     runs its plain version for a scene on the CPU.  Inside
@@ -206,9 +203,8 @@ def render_image(scene, cfg: RenderConfig) -> torch.Tensor:
         outs = []
         for start in range(0, n, chunk):
             with annotate("pt.render.setup"):
-                ids = torch.arange(start, min(start + chunk, n), dtype=torch.int64,
-                                   device=scene.device)
-                schunk = sample_chunk_for(cfg.spp, ids.shape[0])
+                ids = range(start, min(start + chunk, n))
+                schunk = sample_chunk_for(cfg.spp, len(ids))
             if schunk == cfg.spp:
                 outs.append(render_cells(scene, cfg, ids))
                 continue

@@ -197,7 +197,7 @@ def render_progressive(scene: Scene, cfg: RenderConfig, checkpoint_path: Optiona
 
     flush_every = flush_every or cfg.spp
     fp = _fingerprint(scene, cfg)
-    cell_ids = torch.arange(cfg.num_cells, device=scene.device)
+    cell_ids = range(cfg.num_cells)
 
     state = None
     if checkpoint_path and os.path.exists(checkpoint_path):

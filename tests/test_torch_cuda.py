@@ -855,3 +855,67 @@ def test_accum_step_over_cards_equals_the_one_card_mesh(cuda):
             assert all(torch.equal(g[k], one[1][k]) for k in g)
     finally:
         cards.close()
+
+
+def _bench_readers():
+    """``port_bench``'s configurations, traffic and span readers
+    (``port_bench/harness``), importable as the benchmark imports them."""
+    import sys
+    from pathlib import Path
+
+    bench = str(Path(__file__).resolve().parents[1] / "port_bench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness import port, spans, trace
+    from harness.spec import Cell
+
+    return Cell, port, spans, trace
+
+
+@pytest.mark.parametrize("cell", ["box_400x400.geometry", "box_400x400.invert",
+                                  "disco_1024x768.preview"])
+def test_a_step_or_an_image_reads_nothing_back_on_the_card(cuda, cell):
+    """The benchmark's cells, one step or image traced after a warm-up: the
+    benchmark's own reader counts no blocking call of the CUDA runtime
+    inside ``pt.step`` or ``pt.render_image``, and no ``pt.cells.readback``
+    span is entered, while every wrapper of the route ran."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpu_path_tracing_tpu_torch import grad
+
+    Cell, port, spans, trace = _bench_readers()
+    c = Cell(cell)
+    scene = port.scene(c.config, cuda)
+    if "fields" in c.traffic:
+        unit, wrappers = "step", {"pt.k2", "pt.k3"} | ({"pt.k7"} if "p0" in
+                                                        c.traffic["fields"] else set())
+        cfg = port.render_config(c.config, c.config["spp"], 11)
+        target = grad.render_target(scene, cfg, c.config["cell_chunk"])
+        step = grad.make_accum_train_step(scene, cfg, c.config["lr"],
+                                          cell_chunk=c.config["cell_chunk"],
+                                          sample_chunk=c.config["sample_chunk"])
+        params = {k: v + c.traffic["offset"]
+                  for k, v in grad.split_params(scene, tuple(c.traffic["fields"])).items()}
+
+        def run():
+            return float(step(params, target)[1])
+    else:
+        unit, wrappers = "image", {"pt.k2"}
+        cfg = port.render_config(c.config, c.traffic["total_spp"] // 4, 11)
+
+        def run():
+            return tp.render_image(scene, cfg)
+
+    run()
+    torch.cuda.synchronize(cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("test.window"):
+            run()
+            torch.cuda.synchronize(cuda)
+    tr = trace.from_profile(prof, "test.window")
+    names = {n for n, _, _ in tr.host}
+    assert wrappers <= names and "pt.cells.readback" not in names
+    got = spans.syncs_per_unit(SimpleNamespace(unit=unit, trace=tr, n_profiled=1), unit)
+    assert got is not None and got["value"] == 0, got["note"]

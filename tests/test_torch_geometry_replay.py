@@ -335,6 +335,44 @@ def test_backward_route_table():
     assert grad.make_diff_render(scene, cfg).span.route(geo) == "scan"
 
 
+def test_geometry_grads_leave_the_camera_out_when_it_is_no_field(monkeypatch):
+    """Without the camera the partials' p0 and radius come out as they are,
+    and no autograd pass through ``build_camera`` runs."""
+    scene = tp.get_scene("simple", W, H, dtype=torch.float64)
+    n = scene.num_spheres
+    part = torch.from_numpy(np.random.default_rng(1).normal(0, 1, 4 * n + 14))
+    full = gr.geometry_grads_from_partials(scene, part)
+    monkeypatch.setattr(torch.autograd, "grad", lambda *a, **k: pytest.fail("camera mapped"))
+    g = gr.geometry_grads_from_partials(scene, part, camera=False)
+    assert set(g) == {"p0", "radius"}
+    assert torch.equal(g["p0"], full["p0"]) and torch.equal(g["radius"], full["radius"])
+
+
+def test_a_geometry_step_without_the_camera_is_bitwise_as_with_its_map(monkeypatch):
+    """One step of the geometry route (its plain versions) over p0, radius,
+    albedo and emission: the same loss, first gradient and params whether
+    the K7 wrapper maps the camera's partials or leaves them out."""
+    monkeypatch.setattr(grad, "backward_route", lambda *a, **k: "geometry")
+    cfg = tp.RenderConfig(width=W, height=H, spp=SPP, max_depth=8)
+    scene = tp.get_scene("box", W, H)
+    target = grad.render_target(scene, cfg) * 0.9
+    start = {k: v + 0.01 for k, v in
+             grad.split_params(scene, ("p0", "radius", "albedo", "emission")).items()}
+
+    def one_step():
+        step = grad.make_accum_train_step(scene, cfg, 1e-2, cell_chunk=400)
+        params, loss = step(start, target)
+        moments = [s["exp_avg"] for s in step.state_dict()["optimizer"]["state"].values()]
+        return [loss, *grad.flatten_params(params)[1], *moments]
+
+    got = one_step()
+    kernel = grad.geometry_param_grads_kernel
+    monkeypatch.setattr(grad, "geometry_param_grads_kernel",
+                        lambda *a, camera: kernel(*a, camera=True))
+    want = one_step()
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_geometry_route_on_plain_versions_matches_scan(monkeypatch):
     """The 'geometry' route's wiring, run on the CPU where both kernels'
     wrappers take their plain versions: a float64 step's loss and every

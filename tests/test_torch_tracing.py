@@ -91,15 +91,29 @@ def _k7(scene, ids, ct):
                                                   (_k7, "pt.k7", ["pt.k7.map"])])
 def test_each_kernel_wrapper_records_its_span(wrapper, name, inner):
     """On CPU tensors the wrappers run their plain versions, inside the
-    same spans as the launches on the card."""
+    same spans as the launches on the card.  The cells go as the port's
+    callers pass them, a host range: nothing is read back."""
     scene = _box()
-    ids = torch.arange(32, 64)
     ct = torch.full((32, 3), 0.1)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        wrapper(scene, ids, ct)
+        wrapper(scene, range(32, 64), ct)
     spans = _spans(prof)
     assert _children(spans, _only(spans, name)) == inner
     assert {sp[2] for sp in spans} == {name, *inner}
+
+
+@pytest.mark.parametrize("wrapper, name", [(_k2, "pt.k2"), (_k3, "pt.k3"), (_k7, "pt.k7")])
+def test_a_wrapper_reads_an_id_tensor_back_under_its_own_span(wrapper, name):
+    """An id tensor, as a public caller may pass, is checked and read back
+    inside ``pt.cells.readback``, the wrapper's first child: a trace names
+    whoever still pays for it."""
+    scene = _box()
+    ct = torch.full((32, 3), 0.1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        wrapper(scene, torch.arange(32, 64), ct)
+    spans = _spans(prof)
+    assert _children(spans, _only(spans, name))[0] == "pt.cells.readback"
+    assert [sp[2] for sp in spans].count("pt.cells.readback") == 1
 
 
 def test_a_progressive_render_records_batch_flush_and_encode(tmp_path):
