@@ -32,9 +32,36 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def cards(cell, device) -> list:
+    """The cell's cards: ``device`` alone for a one-card cell, else cards 0
+    to ``chips`` - 1 of its type."""
+    if cell.chips == 1:
+        return [device]
+    return [torch.device(device.type, k) for k in range(cell.chips)]
+
+
+def _sync(cards) -> None:
+    for device in cards:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def card_held_bytes(device) -> int:
+    """The larger of this process's peak on the card and the card's
+    device-wide use now, which counts what other processes (the program's
+    workers) hold there, and this process's own CUDA context."""
+    free, total = torch.cuda.mem_get_info(device)
+    return max(torch.cuda.max_memory_allocated(device), total - free)
+
+
+def memory_peak_bytes(cards) -> int:
+    """The fullest card's peak: of a one-card cell, this process's peak on
+    its card; of a cell on several, each card's ``card_held_bytes``."""
+    if cards[0].type != "cuda":
+        return 0
+    if len(cards) == 1:
+        return torch.cuda.max_memory_allocated(cards[0])
+    return max(card_held_bytes(d) for d in cards)
 
 
 def _number(v):
@@ -50,10 +77,11 @@ def _profiler(device):
     return profile(activities=acts)
 
 
-def window(drv, seconds: float, device, traced: bool):
+def window(drv, seconds: float, cards, traced: bool):
     """Run units back to back for ``seconds`` (in a traced run at least until
     the profiled stretch is done).  Returns (unit seconds of the completed
-    units, attempted, failed, window seconds, Trace or None, errors).
+    units, attempted, failed, window seconds, Trace or None, errors), and
+    leaves every attempted unit's seconds, in order, in ``drv.unit_seconds``.
 
     A unit's verdict is True, False, or a callable that is judged once the
     window has closed, so that judging it takes no wait inside the window;
@@ -66,7 +94,7 @@ def window(drv, seconds: float, device, traced: bool):
     i = 0
     while True:
         if profiled and i == profiled[0]:
-            prof = _profiler(device)
+            prof = _profiler(cards[0])
             prof.__enter__()
             span = torch.profiler.record_function("pb.window")
             span.__enter__()
@@ -87,7 +115,7 @@ def window(drv, seconds: float, device, traced: bool):
         units.append((te - ts, verdict))
         in_a_row = in_a_row + 1 if verdict is False else 0
         if span is not None and i == profiled[-1]:
-            _sync(device)
+            _sync(cards)
             span.__exit__(None, None, None)
             prof.__exit__(None, None, None)
             trace = trace_mod.from_profile(prof, "pb.window")
@@ -98,6 +126,7 @@ def window(drv, seconds: float, device, traced: bool):
         if (time.perf_counter() - t0 >= seconds and (not profiled or trace is not None)
                 and i >= drv.min_units):
             break
+    drv.unit_seconds = [t for t, _ in units]
     times = [t for t, verdict in units if (verdict() if callable(verdict) else verdict)]
     return times, len(units), len(units) - len(times), last - t0, trace, errors
 
@@ -117,16 +146,17 @@ def run(cell, seed: int, seconds: float, traced: bool, device, started: float,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     drv = cell.loop().Cell(cell.config, cell.traffic, seed, device, program)
+    drv.cards = cards(cell, device)
     marks = [("interpreter", started), *marks, ("the harness", time.perf_counter())]
     drv.setup()
-    _sync(device)
+    _sync(drv.cards)
     marks.append(("the cell's set-up", time.perf_counter()))
     setup_s = time.perf_counter() - started
     cpu0 = cpu_seconds()
-    times, attempted, failed, window_s, trace, errors = window(drv, seconds, device, traced)
+    times, attempted, failed, window_s, trace, errors = window(drv, seconds, drv.cards, traced)
     cpu_note = (f"this process on a core {100.0 * (cpu_seconds() - cpu0) / window_s:.1f}% "
                 "of the window")
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    peak = memory_peak_bytes(drv.cards)
     for e in errors[:3]:
         print(e, file=err)
     drv.release()
@@ -151,6 +181,9 @@ def run(cell, seed: int, seconds: float, traced: bool, device, started: float,
         tenths = [times[k * len(times) // 10:(k + 1) * len(times) // 10] for k in range(10)]
         notes.append("mean ms by tenth of the window: " + " ".join(
             f"{1e3 * sum(t) / len(t):.3f}" for t in tenths if t))
+        halves = [times[:len(times) // 2], times[len(times) // 2:]]
+        notes.append("ms at 95% of the window's first half, second half: " + " ".join(
+            f"{1e3 * percentile(h, 95):.4f}" for h in halves if h))
     notes += getattr(drv, "notes", [])
     ctx = SimpleNamespace(unit=drv.unit, setup_s=setup_s, window_s=window_s, times=times,
                           completed=len(times), trace=trace, n_profiled=len(drv.profiled),

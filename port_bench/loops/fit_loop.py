@@ -168,6 +168,12 @@ class Cell:
 
     def release(self) -> None:
         self.program = self.step = self.target = self.params = None
+        n = self.traffic["fit_steps"]
+        by_k = [[] for _ in range(n)]
+        for i, t in enumerate(self.unit_seconds):
+            by_k[(self.checked + i) % n].append(t)
+        self.notes = ["mean step ms by position in the fit: " + " ".join(
+            f"{k}:{1e3 * sum(t) / len(t):.3f}" for k, t in enumerate(by_k) if t)]
 
     def check(self) -> list:
         """The compared fit's first ``compared_steps`` steps against the
@@ -194,9 +200,9 @@ class Cell:
         change = {n: got_end[n] - start[n] for n in moved}
         ref_change = {n: end[n] - start[n] for n in moved}
         lim = self.traffic["limits"]
-        self.notes = [f"compared fit {fit} (its first step the run's step "
-                      f"{fit * self.traffic['fit_steps']})",
-                      f"losses {got_losses} reference {losses}"] + [
+        self.notes += [f"compared fit {fit} (its first step the run's step "
+                       f"{fit * self.traffic['fit_steps']})",
+                       f"losses {got_losses} reference {losses}"] + [
             f"leaf {n}: gradient norm {float(rec['grad'][n].norm())!r} reference "
             f"{norms[n]!r}; change norm {float((got_end[n] - start[n]).norm())!r} "
             f"reference {float((end[n] - start[n]).norm())!r}" for n in self.fields]
